@@ -1,14 +1,15 @@
 #!/usr/bin/env bash
 # End-to-end launcher: install the package, record a synthetic laser log,
-# run SLAM on it, print metrics.  The TPU-native counterpart of the
-# reference's startup.sh:1-26 (which builds a simulator Docker image and
-# mounts a shared folder); here the "simulator" is the built-in synthetic
-# world and the engine runs wherever JAX runs (TPU VM, CPU dev box).
+# run SLAM on it, print metrics.  The counterpart of the reference's
+# startup.sh:1-26 (which builds a simulator Docker image and mounts a shared
+# folder); here the "simulator" is the built-in synthetic world and the
+# engine runs on an NVIDIA GPU (or, with CPU=1, on the CPU with the GPU
+# kernel in interpret mode).
 #
 # Usage:
 #   deploy/launch.sh                 # install + smoke pipeline (512 ticks)
 #   SKIP_INSTALL=1 deploy/launch.sh  # pipeline only (already installed)
-#   PARTICLES=100000 TICKS=2000 CHUNK=8 deploy/launch.sh   # scale it up
+#   PARTICLES=100000 TICKS=2000 CHUNK=16 deploy/launch.sh  # scale it up (GPU)
 set -euo pipefail
 cd "$(dirname "$0")/.."
 

@@ -1,4 +1,4 @@
-"""fastslam_tpu — a TPU-native FastSLAM 2.0 engine in JAX/XLA/Pallas.
+"""fastslam_tpu — a FastSLAM 2.0 engine in JAX/XLA/Pallas for NVIDIA GPUs.
 
 Public API: the reference's 14 exports (``/root/reference/fast_slam_2/
 __init__.py:5-22``) plus the SoA engine types.  Reference users switch

@@ -24,28 +24,27 @@ def _add_filter_args(p: argparse.ArgumentParser) -> None:
     p.add_argument("--production", action="store_true",
                    help="production math (log-weights, best-match assoc) "
                         "instead of reference-parity quirks")
-    p.add_argument("--pallas", action=argparse.BooleanOptionalAction, default=None,
-                   help="fused Pallas update kernel (default: on when running "
-                        "on TPU, off on CPU; --no-pallas forces the scan path)")
+    p.add_argument("--pallas", action=argparse.BooleanOptionalAction,
+                   default=True,
+                   help="fused GPU filter kernel (default; with --cpu it runs "
+                        "in Pallas interpret mode); --no-pallas runs the XLA "
+                        "scan path")
     p.add_argument("--warmup", type=int, default=150, help="dead-reckoning ticks")
     p.add_argument("--seed", type=int, default=0)
-    p.add_argument("--cpu", action="store_true", help="force CPU platform")
+    p.add_argument("--cpu", action="store_true",
+                   help="force the CPU platform (the GPU kernel then runs in "
+                        "interpret mode)")
 
 
 def _make_config(args):
     from fastslam_tpu.config import FastSLAMConfig
 
-    use_pallas = args.pallas
-    if use_pallas is None:
-        # default: fused kernel wherever a real accelerator is present
-        import jax
-
-        use_pallas = jax.devices()[0].platform != "cpu"
     return FastSLAMConfig(
         num_particles=args.particles,
         max_landmarks=args.landmarks,
         parity_mode=not args.production,
-        use_pallas=use_pallas,
+        use_pallas=args.pallas,
+        pallas_interpret=args.cpu,
         warmup_iterations=args.warmup,
     )
 
@@ -77,15 +76,9 @@ def cmd_run(args) -> int:
     log = LaserLog.load(args.log)
     cfg = _make_config(args)
     if args.chunk:
-        # batch-replay engine: N ticks per fused kernel invocation, landmark
-        # planes VMEM-resident, resampling at chunk boundaries (~1.3x the
-        # per-tick throughput for a small ATE cost — EVAL.md)
-        import jax
-
-        cfg = cfg.replace(
-            parity_mode=False, use_pallas=True,
-            pallas_interpret=jax.devices()[0].platform == "cpu",
-        )
+        # batch-replay engine: N ticks per fused kernel launch, resampling
+        # at chunk boundaries (a small ATE cost — EVAL.md)
+        cfg = cfg.replace(parity_mode=False, use_pallas=True)
         hist = replay_chunked(log, cfg, chunk_size=args.chunk, rng=args.seed)
     else:
         hist = run_driver(ReplayDriver(log), cfg, rng=args.seed)
@@ -138,7 +131,7 @@ def main(argv=None) -> int:
     p.add_argument("--log", required=True)
     p.add_argument("--plot", default=None, help="write trajectory plot PNG")
     p.add_argument("--chunk", type=int, default=0,
-                   help="batch replay: ticks per fused kernel invocation "
+                   help="batch replay: ticks per fused kernel launch "
                         "(implies --production; 0 = per-tick online loop)")
     p.add_argument("--skip-ticks", type=int, default=0,
                    help="skip first N ticks in metrics")

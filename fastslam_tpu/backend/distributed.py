@@ -87,10 +87,9 @@ def shard_pose_graph(g: PoseGraph, num_shards: int) -> Tuple[PoseGraph, int]:
             stacklevel=2,
         )
 
-    # HOST (numpy) arrays on purpose: an [F, 2] array committed to a TPU
-    # pads its trailing dim 2 -> 128 (64x memory at rest).  The jitted
-    # step takes 1-D column slices of these, which tile densely; keeping
-    # the permuted graph host-side costs nothing on the CPU mesh either.
+    # HOST (numpy) arrays on purpose: the jitted step takes 1-D column
+    # slices of these (pose_graph._obs_geometry_cols layout note); keeping
+    # the permuted graph host-side costs nothing on any mesh.
     return g._replace(
         obs_kf=np.asarray(g.obs_kf)[order],
         obs_lm=obs_lm[order],
@@ -168,7 +167,7 @@ def make_sharded_gn_step(mesh: Mesh, map_axis: str = "map",
     O(F + K^2) memory, required at 1M landmarks where the dense [K, L]
     assembly alone exceeds host/device memory; the step then takes the
     ``(pair_a, pair_b, pair_valid)`` arrays from :func:`build_schur_pairs`.
-    ``sparse=False`` keeps the dense MXU-einsum path (fine for small maps).
+    ``sparse=False`` keeps the dense einsum path (fine for small maps).
     """
     from fastslam_tpu.backend.pose_graph import (
         backsubstitute_landmarks_sparse, landmark_system_sparse,
@@ -178,8 +177,7 @@ def make_sharded_gn_step(mesh: Mesh, map_axis: str = "map",
                     obs_kf, obs_lm, rb0, rb1, w0, w1, obs_valid,
                     prior_info, damping, pair_a, pair_b, pair_valid):
         """Column-vector layout throughout (pose_graph._obs_geometry_cols
-        layout note): [F]/[L] vectors tile densely on TPU where [F, 2] /
-        [F, 3, 2] arrays pad their trailing dims 40-60x."""
+        layout note): one [F]/[L] vector per component."""
         k = poses.shape[0]
         shard = jax.lax.axis_index(map_axis)
         l_local = lx.shape[0]
@@ -334,8 +332,8 @@ def optimize_sharded(g: PoseGraph, mesh: Mesh, num_iters: int = 10,
     ``sparse=True`` (default) runs the factor-pair Schur reduction — the
     O(F + K^2)-memory path that handles 1M-landmark graphs; ``sparse=False``
     keeps the dense [K, L] assembly (small maps only).  The sparse path
-    moves data to the device exclusively as 1-D column vectors (TPU tiling
-    — see pose_graph._obs_geometry_cols) and evaluates the LM accept/reject
+    moves data to the device exclusively as 1-D column vectors (see
+    pose_graph._obs_geometry_cols) and evaluates the LM accept/reject
     error on the host."""
     from fastslam_tpu.backend.pose_graph import total_error
 
@@ -376,8 +374,7 @@ def optimize_sharded(g: PoseGraph, mesh: Mesh, num_iters: int = 10,
                                            lam * 0.5)
             else:
                 lam *= 10.0
-        # host-side assembly: a [L, 2] array committed to the TPU would
-        # pad its trailing dim 2 -> 128 (1 GB at L = 2^21)
+        # host-side assembly of the [L, 2] result from the two columns
         landmarks = np.stack([np.asarray(lx), np.asarray(ly)], axis=-1)
         return poses, landmarks, err
 

@@ -51,8 +51,8 @@ def transform_points(points: jax.Array, rotation: jax.Array,
                      translation: jax.Array) -> jax.Array:
     """Apply an SE(2) transform to ``[N, 2]`` points.
 
-    Elementwise rotation, not ``points @ R.T`` — a bf16 MXU pass would
-    quantize metric coordinates (proposal/icp.py numerics note)."""
+    Elementwise rotation, not ``points @ R.T`` — a reduced-precision matmul
+    would quantize metric coordinates (proposal/icp.py numerics note)."""
     theta = jnp.arctan2(rotation[1, 0], rotation[0, 0])
     return rotate_points(points, theta) + translation
 

@@ -40,8 +40,14 @@ from __future__ import annotations
 
 from typing import NamedTuple, Tuple
 
+import functools
+
 import jax
 import jax.numpy as jnp
+
+# float32 contractions at full precision: a GPU would otherwise run them as
+# TF32 (~3 decimal digits), which the Schur solve cannot afford
+_einsum = functools.partial(jnp.einsum, precision=jax.lax.Precision.HIGHEST)
 
 
 def wrap_angle(a):
@@ -141,11 +147,11 @@ def pose_system(poses, g: PoseGraph, damping: jax.Array):
     wja = ja * w_odo[:, :, None]     # W J_a  (diag weight)
     wjb = jb * w_odo[:, :, None]
 
-    haa = jnp.einsum("fij,fik->fjk", ja, wja)       # [K-1, 3, 3]
-    hbb = jnp.einsum("fij,fik->fjk", jb, wjb)
-    hab = jnp.einsum("fij,fik->fjk", ja, wjb)
-    ba = -jnp.einsum("fij,fi->fj", wja, r_odo)      # [K-1, 3]
-    bb = -jnp.einsum("fij,fi->fj", wjb, r_odo)
+    haa = _einsum("fij,fik->fjk", ja, wja)       # [K-1, 3, 3]
+    hbb = _einsum("fij,fik->fjk", jb, wjb)
+    hab = _einsum("fij,fik->fjk", ja, wjb)
+    ba = -_einsum("fij,fi->fj", wja, r_odo)      # [K-1, 3]
+    bb = -_einsum("fij,fi->fj", wjb, r_odo)
 
     big_h = jnp.zeros((k, k, 3, 3))
     idx = jnp.arange(k - 1)
@@ -199,11 +205,11 @@ def landmark_system(poses, landmarks, g: PoseGraph, damping: jax.Array):
     # jl/jp are d(pred)/dx, and r = z - pred, so the GN system is
     # (J~' W J~) d = +J~' W r (minimize ||r - J~ d||^2) — note the + sign,
     # unlike the odometry factors above where r is defined as pred - z.
-    hpp_f = jnp.einsum("fip,fiq->fpq", jp, wjp)     # [F, 3, 3]
-    hll_f = jnp.einsum("fia,fib->fab", jl, wjl)     # [F, 2, 2]
-    hpl_f = jnp.einsum("fip,fia->fpa", wjp, jl)     # [F, 3, 2]
-    bp_f = jnp.einsum("fip,fi->fp", wjp, r_obs)     # [F, 3]
-    bl_f = jnp.einsum("fia,fi->fa", wjl, r_obs)     # [F, 2]
+    hpp_f = _einsum("fip,fiq->fpq", jp, wjp)     # [F, 3, 3]
+    hll_f = _einsum("fia,fib->fab", jl, wjl)     # [F, 2, 2]
+    hpl_f = _einsum("fip,fia->fpa", wjp, jl)     # [F, 3, 2]
+    bp_f = _einsum("fip,fi->fp", wjp, r_obs)     # [F, 3]
+    bl_f = _einsum("fia,fi->fa", wjl, r_obs)     # [F, 2]
 
     hpp_diag = jnp.zeros((k, 3, 3)).at[g.obs_kf].add(hpp_f)
     bp_obs = jnp.zeros((k, 3)).at[g.obs_kf].add(bp_f)
@@ -226,30 +232,28 @@ def landmark_system(poses, landmarks, g: PoseGraph, damping: jax.Array):
 
     # ---- Schur reduction: S = Hpp - Hpl Hll^-1 Hpl' ; rs = bp - Hpl Hll^-1 bl
     # Hpl is assembled blockwise as [K, L, 3, 2] (keyframes x landmark slots);
-    # the einsum over the landmark axis contracts each 2x2-inverted block on
-    # the MXU.  Under shard_map with landmarks on the map axis, `cross` and
-    # the rs correction become per-shard partials followed by a psum — see
-    # optimize_sharded.  NOTE: the dense [K, L] assembly is O(K*L) memory —
+    # the einsum over the landmark axis contracts each 2x2-inverted block
+    # (float32 at 'highest' precision: _einsum).  Under shard_map with
+    # landmarks on the map axis, `cross` and the rs correction become
+    # per-shard partials followed by a psum — see optimize_sharded.  NOTE: the dense [K, L] assembly is O(K*L) memory —
     # fine for per-session smoothing (K~100, L~1k) but fatal at 1M landmarks
     # with hundreds of keyframes; the large-scale path is
     # :func:`landmark_system_sparse` (O(F) memory, exact same math).
     hpl_dense = jnp.zeros((k, l, 3, 2)).at[g.obs_kf, g.obs_lm].add(hpl_f)
-    ghl_dense = jnp.einsum("klpa,lab->klpb", hpl_dense, hll_inv)  # [K, L, 3, 2]
-    cross = jnp.einsum("klpb,mlqb->kmpq", ghl_dense, hpl_dense)   # [K, K, 3, 3]
-    rs_corr = jnp.einsum("klpb,lb->kp", ghl_dense, bl)            # [K, 3]
+    ghl_dense = _einsum("klpa,lab->klpb", hpl_dense, hll_inv)  # [K, L, 3, 2]
+    cross = _einsum("klpb,mlqb->kmpq", ghl_dense, hpl_dense)   # [K, K, 3, 3]
+    rs_corr = _einsum("klpb,lb->kp", ghl_dense, bl)            # [K, 3]
     return hpp_diag, bp_obs, cross, rs_corr, hll_inv, bl, hpl_dense
 
 
 def _obs_geometry_cols(poses, lx, ly, obs_kf, obs_lm, rb0, rb1):
     """Per-factor residuals + geometry as COLUMN VECTORS ([F] each).
 
-    TPU layout note (load-bearing, the reason this exists): any ``[F, 2]``
-    / ``[F, 3, 2]`` array tiles its trailing dims up to (8, 128)/(4, 128)
-    on TPU — a 40-60x memory blowup that put the einsum formulation of the
-    sparse path at 37 GB for a 970 MB problem (2.6% utilization OOM,
-    round 5).  1-D ``[F]`` vectors tile densely, so every per-factor
-    quantity here is a separate column — the same struct-of-planes design
-    as the filter kernels (core/pallas_kernels.py)."""
+    Layout note: every per-factor quantity is a separate 1-D ``[F]``
+    column, never a ``[F, 2]`` / ``[F, 3, 2]`` array with tiny trailing
+    dims, so each is one contiguous vector in device memory — the same
+    struct-of-planes design as the filter kernel
+    (core/pallas_kernels.py)."""
     px = poses[:, 0][obs_kf]
     py = poses[:, 1][obs_kf]
     pt = poses[:, 2][obs_kf]
@@ -273,8 +277,7 @@ def landmark_system_sparse(poses, lx, ly, damping,
 
     All per-factor/per-landmark state is carried as COLUMN VECTORS
     (``lx``/``ly`` landmark coordinates, ``rb0``/``rb1`` range/bearing,
-    ``w0``/``w1`` information) — see :func:`_obs_geometry_cols` for why
-    this layout is required on TPU.
+    ``w0``/``w1`` information) — see :func:`_obs_geometry_cols`.
 
     ``cross[k, m] = sum_l (sum_{f1 in l, kf=k} Hpl_f1) Hll_l^-1
     (sum_{f2 in l, kf=m} Hpl_f2)^T`` expands into a sum over ORDERED pairs
@@ -440,8 +443,8 @@ def schur_normal_equations(poses, landmarks, g: PoseGraph, damping: jax.Array):
 
 def backsubstitute_landmarks(dp, hll_inv, bl, hpl_dense):
     """dl = Hll^-1 (bl - Hpl' dp) — shard-local under map-axis sharding."""
-    hplT_dp = jnp.einsum("klpb,kp->lb", hpl_dense, dp)
-    return jnp.einsum("lab,lb->la", hll_inv, bl - hplT_dp)
+    hplT_dp = _einsum("klpb,kp->lb", hpl_dense, dp)
+    return _einsum("lab,lb->la", hll_inv, bl - hplT_dp)
 
 
 def gauss_newton_step(poses, landmarks, g: PoseGraph, damping) -> Tuple[jax.Array, jax.Array]:

@@ -10,7 +10,8 @@ whole filter step jits into one XLA program:
   and an ``argmax``-of-boolean (argmax returns the *first* True, exactly
   reproducing first-match semantics);
 * the 2x2 EKF with ``np.linalg.inv`` (``fast_slam_2.py:116-159``) becomes a
-  closed-form symmetric 2x2 solve — no LAPACK, pure VPU math;
+  closed-form symmetric 2x2 solve — no LAPACK, elementwise math that the
+  fused kernel (``core/pallas_kernels.py``) shares;
 * data-dependent branches (append-vs-update ``fast_slam_2.py:105-114``,
   resample-if-degenerate ``:62``) become ``where`` masks and ``lax.cond``;
 * raw-probability weights (``:159``) are carried in log space.
@@ -87,22 +88,36 @@ def propagate_particles(
 # association + landmark EKF (one measurement, all particles)
 # ---------------------------------------------------------------------------
 
-def _inv2x2(cov: jax.Array, eps: float = 1e-12):
-    """Closed-form inverse of flattened 2x2s ``[..., 4]`` = (a, b, c, d)."""
-    a, b, c, d = cov[..., 0], cov[..., 1], cov[..., 2], cov[..., 3]
+def _associate(mx, my, a, b, c, d, valid, qx, qy, config: FastSLAMConfig,
+               axis: int):
+    """Mahalanobis association on landmark COMPONENT arrays.
+
+    Slots lie along ``axis`` of ``mx``/``my``/``a..d``/``valid``; the query
+    ``(qx, qy)`` broadcasts against them.  Shared by the XLA path
+    (``[P, L]`` blocks, ``axis=1``) and the fused kernel (``[L, T]`` planes,
+    ``axis=0``), so both run the same arithmetic in the same order.
+
+    Returns ``(idx, has_match)`` with the slot axis kept as size 1.
+    """
+    dx = mx - qx
+    dy = my - qy
+    # closed-form 2x2 inverse (a, b, c, d) -> (d, -b, -c, a) / det
     det = a * d - b * c
+    eps = 1e-12
     safe = jnp.where(jnp.abs(det) > eps, det, jnp.sign(det) * eps + eps)
     inv_det = 1.0 / safe
-    return (
-        jnp.stack([d, -b, -c, a], axis=-1) * inv_det[..., None],
-        det,
-    )
-
-
-def _quadform2(cov_inv: jax.Array, v0: jax.Array, v1: jax.Array) -> jax.Array:
-    """v^T M v for flattened 2x2 M ``[..., 4]`` and vector components v0, v1."""
-    ia, ib, ic, id_ = cov_inv[..., 0], cov_inv[..., 1], cov_inv[..., 2], cov_inv[..., 3]
-    return v0 * (ia * v0 + ib * v1) + v1 * (ic * v0 + id_ * v1)
+    ia, ib, ic, id_ = d * inv_det, -b * inv_det, -c * inv_det, a * inv_det
+    d2 = dx * (ia * dx + ib * dy) + dy * (ic * dx + id_ * dy)
+    dist = jnp.sqrt(jnp.maximum(d2, 0.0))
+    usable = valid & (det > 0.0)
+    dist = jnp.where(usable, dist, jnp.inf)
+    hit = (usable & (dist < config.max_landmark_distance)).astype(jnp.int32)
+    has_match = jnp.max(hit, axis=axis, keepdims=True) > 0
+    if config.parity_mode:
+        idx = jnp.argmax(hit, axis=axis, keepdims=True)   # first hit
+    else:
+        idx = jnp.argmin(dist, axis=axis, keepdims=True)  # best hit
+    return idx.astype(jnp.int32), has_match
 
 
 def associate(
@@ -117,8 +132,8 @@ def associate(
     Replaces the reference's serial first-match-under-gate scan
     (``landmark_utils.py:92-117``): the Mahalanobis distance from ``query`` to
     every slot is computed densely as a ``[P, L]`` matrix; in parity mode the
-    *first* slot under the gate wins (``jnp.argmax`` over the hit mask returns
-    the first True), in production mode the *closest* slot wins.
+    *first* slot under the gate wins (``argmax`` over the hit mask returns the
+    first True), in production mode the *closest* slot wins.
 
     Args:
       lm_mean: ``[P, L, 2]``; lm_cov: ``[P, L, 4]``; lm_valid: ``[P, L]`` bool.
@@ -129,19 +144,86 @@ def associate(
     Returns:
       ``(idx [P] int32, has_match [P] bool)``.
     """
-    delta = lm_mean - query[:, None, :]            # [P, L, 2]
-    cov_inv, det = _inv2x2(lm_cov)
-    d2 = _quadform2(cov_inv, delta[..., 0], delta[..., 1])
-    dist = jnp.sqrt(jnp.maximum(d2, 0.0))
-    usable = lm_valid & (det > 0.0)
-    dist = jnp.where(usable, dist, jnp.inf)
-    hit = usable & (dist < config.max_landmark_distance)
-    has_match = jnp.any(hit, axis=1)
-    if config.parity_mode:
-        idx = jnp.argmax(hit, axis=1).astype(jnp.int32)  # first hit
-    else:
-        idx = jnp.argmin(dist, axis=1).astype(jnp.int32)  # best hit
-    return idx, has_match
+    idx, has_match = _associate(
+        lm_mean[..., 0], lm_mean[..., 1], lm_cov[..., 0], lm_cov[..., 1],
+        lm_cov[..., 2], lm_cov[..., 3], lm_valid,
+        query[:, 0:1], query[:, 1:2], config, axis=1,
+    )
+    return idx[:, 0], has_match[:, 0]
+
+
+def _landmark_ekf(mu_x, mu_y, a, b, c, d, px, py, yaw, dist_z, bearing_z,
+                  config: FastSLAMConfig):
+    """2x2 landmark EKF for one (distance, bearing) measurement, elementwise
+    over any shape (``[P]`` in the XLA path, ``[1, T]`` rows in the kernel).
+
+    Reference ``fast_slam_2.py:116-159``: H = [[dx/r, dy/r], [-dy/q, dx/q]],
+    S = H Sigma H^T + R, K = Sigma H^T S^-1, (I - K H) Sigma (production mode
+    symmetrizes), and the Gaussian log-likelihood of the innovation.
+
+    Returns ``(new_mu_x, new_mu_y, new_a, new_b, new_c, new_d, log_lik)``.
+    """
+    dx = mu_x - px
+    dy = mu_y - py
+    q = jnp.maximum(dx * dx + dy * dy, 1e-12)
+    r = jnp.sqrt(q)
+    nu_r = dist_z - r
+    nu_b = wrap_angle(bearing_z - (jnp.arctan2(dy, dx) - yaw))
+
+    h00 = dx / r
+    h01 = dy / r
+    h10 = -dy / q
+    h11 = dx / q
+
+    # S = H Sigma H^T + R; rows of H Sigma: u = (h00*a + h01*c, h00*b + h01*d),
+    # v = (h10*a + h11*c, h10*b + h11*d)
+    u0 = h00 * a + h01 * c
+    u1 = h00 * b + h01 * d
+    v0 = h10 * a + h11 * c
+    v1 = h10 * b + h11 * d
+    rn = config.measurement_noise
+    s00 = u0 * h00 + u1 * h01 + rn
+    s01 = u0 * h10 + u1 * h11
+    s10 = v0 * h00 + v1 * h01
+    s11 = v0 * h10 + v1 * h11 + rn
+
+    s_det = s00 * s11 - s01 * s10
+    s_det_safe = jnp.maximum(jnp.abs(s_det), 1e-18) * jnp.sign(s_det + 1e-30)
+    i00, i01 = s11 / s_det_safe, -s01 / s_det_safe
+    i10, i11 = -s10 / s_det_safe, s00 / s_det_safe
+
+    # K = Sigma H^T S^-1; Sigma H^T columns m = (a*h00 + b*h01, c*h00 + d*h01),
+    # n = (a*h10 + b*h11, c*h10 + d*h11)
+    m0 = a * h00 + b * h01
+    m1 = c * h00 + d * h01
+    n0 = a * h10 + b * h11
+    n1 = c * h10 + d * h11
+    k00 = m0 * i00 + n0 * i10
+    k01 = m0 * i01 + n0 * i11
+    k10 = m1 * i00 + n1 * i10
+    k11 = m1 * i01 + n1 * i11
+
+    new_mu_x = mu_x + k00 * nu_r + k01 * nu_b
+    new_mu_y = mu_y + k10 * nu_r + k11 * nu_b
+
+    # (I - K H) Sigma  (reference :146).  Production mode symmetrizes.
+    g00 = 1.0 - (k00 * h00 + k01 * h10)
+    g01 = -(k00 * h01 + k01 * h11)
+    g10 = -(k10 * h00 + k11 * h10)
+    g11 = 1.0 - (k10 * h01 + k11 * h11)
+    new_a = g00 * a + g01 * c
+    new_b = g00 * b + g01 * d
+    new_c = g10 * a + g11 * c
+    new_d = g10 * b + g11 * d
+    if not config.parity_mode:
+        off = 0.5 * (new_b + new_c)
+        new_b = off
+        new_c = off
+
+    # Gaussian log-likelihood of the innovation under S (:156-159)
+    maha = i00 * nu_r * nu_r + (i01 + i10) * nu_r * nu_b + i11 * nu_b * nu_b
+    log_lik = -0.5 * (maha + jnp.log(jnp.maximum(s_det, 1e-30))) - _LOG_TWO_PI
+    return new_mu_x, new_mu_y, new_a, new_b, new_c, new_d, log_lik
 
 
 def update_particles_one(
@@ -195,79 +277,15 @@ def update_particles_one(
 
     idx, has_match = associate(lm_mean, lm_cov, lm_valid, query, config)
 
-    # ---------------- EKF update for the matched slot ----------------
     take = lambda arr: jnp.take_along_axis(
         arr, idx[:, None, *([None] * (arr.ndim - 2))], axis=1
     ).squeeze(1)
     mu = take(lm_mean)                                          # [P, 2]
     sig = take(lm_cov)                                          # [P, 4]
-
-    dx = mu[:, 0] - px
-    dy = mu[:, 1] - py
-    q = dx * dx + dy * dy
-    q = jnp.maximum(q, 1e-12)
-    r = jnp.sqrt(q)
-
-    pred_r = r
-    pred_b = jnp.arctan2(dy, dx) - yaw
-    nu_r = dist_z - pred_r
-    nu_b = wrap_angle(bearing_z - pred_b)
-
-    # H = [[dx/r, dy/r], [-dy/q, dx/q]]  (fast_slam_2.py:130-133)
-    h00 = dx / r
-    h01 = dy / r
-    h10 = -dy / q
-    h11 = dx / q
-
-    a, b, c, d = sig[:, 0], sig[:, 1], sig[:, 2], sig[:, 3]
-    # S = H Σ H^T + R
-    # rows of HΣ: u = (h00*a + h01*c, h00*b + h01*d); v = (h10*a + h11*c, h10*b + h11*d)
-    u0 = h00 * a + h01 * c
-    u1 = h00 * b + h01 * d
-    v0 = h10 * a + h11 * c
-    v1 = h10 * b + h11 * d
-    rn = config.measurement_noise
-    s00 = u0 * h00 + u1 * h01 + rn
-    s01 = u0 * h10 + u1 * h11
-    s10 = v0 * h00 + v1 * h01
-    s11 = v0 * h10 + v1 * h11 + rn
-
-    s_det = s00 * s11 - s01 * s10
-    s_det_safe = jnp.maximum(jnp.abs(s_det), 1e-18) * jnp.sign(s_det + 1e-30)
-    i00, i01, i10, i11 = s11 / s_det_safe, -s01 / s_det_safe, -s10 / s_det_safe, s00 / s_det_safe
-
-    # K = Σ H^T S^{-1}.  ΣH^T columns: m = (a*h00 + b*h01, c*h00 + d*h01);
-    # n = (a*h10 + b*h11, c*h10 + d*h11)
-    m0 = a * h00 + b * h01
-    m1 = c * h00 + d * h01
-    n0 = a * h10 + b * h11
-    n1 = c * h10 + d * h11
-    k00 = m0 * i00 + n0 * i10
-    k01 = m0 * i01 + n0 * i11
-    k10 = m1 * i00 + n1 * i10
-    k11 = m1 * i01 + n1 * i11
-
-    new_mu0 = mu[:, 0] + k00 * nu_r + k01 * nu_b
-    new_mu1 = mu[:, 1] + k10 * nu_r + k11 * nu_b
-
-    # (I - K H) Σ  (reference :146).  Production mode adds symmetrization.
-    g00 = 1.0 - (k00 * h00 + k01 * h10)
-    g01 = -(k00 * h01 + k01 * h11)
-    g10 = -(k10 * h00 + k11 * h10)
-    g11 = 1.0 - (k10 * h01 + k11 * h11)
-    new_a = g00 * a + g01 * c
-    new_b = g00 * b + g01 * d
-    new_c = g10 * a + g11 * c
-    new_d = g10 * b + g11 * d
-    if not config.parity_mode:
-        # symmetrize for long-horizon numerical health
-        off = 0.5 * (new_b + new_c)
-        new_b = off
-        new_c = off
-
-    # Gaussian log-likelihood of the innovation under S (:156-159).
-    maha = i00 * nu_r * nu_r + (i01 + i10) * nu_r * nu_b + i11 * nu_b * nu_b
-    log_lik = -0.5 * (maha + jnp.log(jnp.maximum(s_det, 1e-30))) - _LOG_TWO_PI
+    new_mu0, new_mu1, new_a, new_b, new_c, new_d, log_lik = _landmark_ekf(
+        mu[:, 0], mu[:, 1], sig[:, 0], sig[:, 1], sig[:, 2], sig[:, 3],
+        px, py, yaw, dist_z, bearing_z, config,
+    )
 
     # ---------------- merge hit / miss / invalid paths ----------------
     can_append = lm_count < l
@@ -304,23 +322,10 @@ def update_particles(state: FilterState, measurements: Measurements,
 
     The reference processes measurements strictly serially (``fast_slam_2.py:48``)
     — measurement k may associate against a landmark appended by measurement
-    k-1 — so this is a ``lax.scan`` with the map arrays as carry.  With
-    ``config.use_pallas`` the whole scan runs as one fused Pallas kernel that
-    keeps each particle tile's landmark block in VMEM across all measurements
-    (same arithmetic, ~M-fold less HBM traffic).
+    k-1 — so this is a ``lax.scan`` with the map arrays as carry.  This is the
+    plain XLA path; the planes engine (:func:`fastslam_step_planes`) runs the
+    same arithmetic as one fused kernel.
     """
-    if config.use_pallas and update_weights:
-        from fastslam_tpu.core.pallas_kernels import fused_update
-
-        log_w, mean, cov, count = fused_update(
-            state.poses, state.log_weights, state.lm_mean, state.lm_cov,
-            state.lm_count, measurements.range_bearing, measurements.valid,
-            config, interpret=config.pallas_interpret,
-        )
-        return state._replace(
-            log_weights=log_w, lm_mean=mean, lm_cov=cov, lm_count=count
-        )
-
     def step(carry, zs):
         log_w, mean, cov, count = carry
         z, valid = zs
@@ -377,6 +382,146 @@ def _chol3x3_sym(m, jitter=1e-9):
     return l00, l10, l11, l20, l21, l22
 
 
+def _proposal_prior(yaw_pred, s_t2, s_r2, fxy):
+    """Motion-prior covariance of the fs2 proposal and its information form.
+
+    P = R diag(s_t2, fxy) R' on xy (translation noise along the heading,
+    the squared floor across it), ``s_r2`` on theta, independent.
+    Returns ``((p00, p01, p11), lam)`` with ``lam`` the 6-entry dict."""
+    cy = jnp.cos(yaw_pred)
+    sy = jnp.sin(yaw_pred)
+    p00 = cy * cy * s_t2 + sy * sy * fxy
+    p01 = cy * sy * (s_t2 - fxy)
+    p11 = sy * sy * s_t2 + cy * cy * fxy
+    det_p = p00 * p11 - p01 * p01
+    i_p = 1.0 / jnp.maximum(det_p, 1e-18)
+    lam = {
+        "a00": p11 * i_p,
+        "a01": -p01 * i_p,
+        "a02": jnp.zeros_like(p00),
+        "a11": p00 * i_p,
+        "a12": jnp.zeros_like(p00),
+        "a22": 1.0 / s_r2 * jnp.ones_like(p00),
+    }
+    return (p00, p01, p11), lam
+
+
+def _proposal_step(carry, mu_x, mu_y, a, b, c, d, use, px, py, yaw_pred,
+                   dist_z, bearing_z, prior, s_r2, scale,
+                   config: FastSLAMConfig):
+    """One measurement's contribution to the fs2 pose posterior, given the
+    landmark it associates with at the PREDICTED pose (elementwise; shared
+    by :func:`fastslam2_propose` and the fused kernel).
+
+    ``carry = (lam, eta0, eta1, eta2, log_w_add)``; ``use`` marks valid,
+    associated measurements; ``scale`` is the proposal mode dial (``None``
+    = 1).  Returns the updated carry."""
+    lam, eta0, eta1, eta2, log_w_add = carry
+    p00, p01, p11 = prior
+    dt = px.dtype
+
+    dx = mu_x - px
+    dy = mu_y - py
+    q = jnp.maximum(dx * dx + dy * dy, 1e-12)
+    r = jnp.sqrt(q)
+    nu_r = dist_z - r
+    nu_b = wrap_angle(bearing_z - (jnp.arctan2(dy, dx) - yaw_pred))
+
+    # landmark-side innovation covariance S~ = Hm Sig Hm' + R
+    h00 = dx / r
+    h01 = dy / r
+    h10 = -dy / q
+    h11 = dx / q
+    u0 = h00 * a + h01 * c
+    u1 = h00 * b + h01 * d
+    v0 = h10 * a + h11 * c
+    v1 = h10 * b + h11 * d
+    rn = config.measurement_noise
+    s00 = u0 * h00 + u1 * h01 + rn
+    s01 = u0 * h10 + u1 * h11
+    s11 = v0 * h10 + v1 * h11 + rn
+    s_det = jnp.maximum(s00 * s11 - s01 * s01, 1e-18)
+    si = 1.0 / s_det
+    i00, i01, i11 = s11 * si, -s01 * si, s00 * si
+
+    # chi^2 innovation gate (99% for 2 dof): a measurement whose
+    # innovation is implausible under S~ is a likely mis-association —
+    # feeding it to the proposal would *pull* the pose toward a wrong
+    # consistency instead of merely down-weighting the particle
+    maha_gate = (i00 * nu_r * nu_r + 2.0 * i01 * nu_r * nu_b
+                 + i11 * nu_b * nu_b)
+    use = use & (maha_gate < 9.21)
+
+    # pose Jacobian Hx = [[-dx/r, -dy/r, 0], [dy/q, -dx/q, -1]]
+    g00, g01, g02 = -h00, -h01, jnp.zeros_like(h00)
+    g10, g11_, g12 = -h10, -h11, -jnp.ones_like(h00)
+
+    # Hx' S~^-1 Hx (symmetric 3x3) and Hx' S~^-1 nu
+    t00 = i00 * g00 + i01 * g10
+    t01 = i00 * g01 + i01 * g11_
+    t02 = i00 * g02 + i01 * g12
+    t10 = i01 * g00 + i11 * g10
+    t11 = i01 * g01 + i11 * g11_
+    t12 = i01 * g02 + i11 * g12
+
+    d00 = g00 * t00 + g10 * t10
+    d01 = g00 * t01 + g10 * t11
+    d02 = g00 * t02 + g10 * t12
+    d11 = g01 * t01 + g11_ * t11
+    d12 = g01 * t02 + g11_ * t12
+    d22 = g02 * t02 + g12 * t12
+
+    e0 = t00 * nu_r + t10 * nu_b
+    e1 = t01 * nu_r + t11 * nu_b
+    e2 = t02 * nu_r + t12 * nu_b
+
+    usef = use.astype(dt)
+    # mode dial: scale the proposal information only — never the weight
+    luse = usef if scale is None else usef * scale
+    lam = {
+        "a00": lam["a00"] + luse * d00,
+        "a01": lam["a01"] + luse * d01,
+        "a02": lam["a02"] + luse * d02,
+        "a11": lam["a11"] + luse * d11,
+        "a12": lam["a12"] + luse * d12,
+        "a22": lam["a22"] + luse * d22,
+    }
+    eta0 = eta0 + luse * e0
+    eta1 = eta1 + luse * e1
+    eta2 = eta2 + luse * e2
+
+    # evidence weight: N(nu; 0, S~ + Hx P0 Hx')  — prior-inflated
+    # innovation covariance (project the motion prior through Hx)
+    # Hx P0 Hx' with P0 = [[p00,p01,0],[p01,p11,0],[0,0,s_r2]]
+    q00 = g00 * (p00 * g00 + p01 * g01) + g01 * (p01 * g00 + p11 * g01)
+    q01 = g00 * (p00 * g10 + p01 * g11_) + g01 * (p01 * g10 + p11 * g11_)
+    q11 = (g10 * (p00 * g10 + p01 * g11_) + g11_ * (p01 * g10 + p11 * g11_)
+           + s_r2 * g12 * g12)
+    z00 = s00 + q00
+    z01 = s01 + q01
+    z11 = s11 + q11
+    z_det = jnp.maximum(z00 * z11 - z01 * z01, 1e-30)
+    zi = 1.0 / z_det
+    maha = (z11 * nu_r * nu_r - 2.0 * z01 * nu_r * nu_b + z00 * nu_b * nu_b) * zi
+    log_ev = -0.5 * (maha + jnp.log(z_det)) - _LOG_TWO_PI
+    log_w_add = log_w_add + jnp.where(use, log_ev, 0.0)
+    return lam, eta0, eta1, eta2, log_w_add
+
+
+def _sample_pose(lam, eta0, eta1, eta2, px, py, yaw_pred, n0, n1, n2):
+    """Sigma = Lambda^-1, mu = pred + Sigma eta, pose = mu + chol(Sigma) n."""
+    sigma = _inv3x3_sym(lam)
+    mu0 = px + sigma["a00"] * eta0 + sigma["a01"] * eta1 + sigma["a02"] * eta2
+    mu1 = py + sigma["a01"] * eta0 + sigma["a11"] * eta1 + sigma["a12"] * eta2
+    mu2 = (yaw_pred + sigma["a02"] * eta0 + sigma["a12"] * eta1
+           + sigma["a22"] * eta2)
+    l00, l10, l11, l20, l21, l22 = _chol3x3_sym(sigma)
+    new_x = mu0 + l00 * n0
+    new_y = mu1 + l10 * n0 + l11 * n1
+    new_yaw = wrap_angle(mu2 + l20 * n0 + l21 * n1 + l22 * n2)
+    return new_x, new_y, new_yaw
+
+
 def fastslam2_propose(
     state: FilterState,
     rotation: jax.Array,
@@ -425,171 +570,47 @@ def fastslam2_propose(
 
     Returns ``(state with new poses and updated log-weights, pose_pred)``.
     """
-    p = state.num_particles
-    dt = state.poses.dtype
-
+    rot_eff, trans_eff, s_t2, s_r2, fxy = fs2_prior_scalars(
+        rotation, translation, config, (xy_floor, theta_floor),
+    )
     # mean motion (no sampling noise — uncertainty moves into the proposal)
-    rotating = rotation != 0.0
-    yaw_pred = wrap_angle(state.poses[:, 2] + jnp.where(rotating, rotation, 0.0))
-    trans = jnp.where(rotating, 0.0, translation)
-    px = state.poses[:, 0] + trans * jnp.cos(yaw_pred)
-    py = state.poses[:, 1] + trans * jnp.sin(yaw_pred)
-
-    # motion prior covariance in pose space: translation noise along the
-    # heading, rotation noise on theta, with floors for invertibility
-    fxy = (config.proposal_xy_floor if xy_floor is None else xy_floor) ** 2
-    fth = (config.proposal_theta_floor if theta_floor is None
-           else theta_floor) ** 2
-    s_t2 = jnp.where(rotating, 0.0, config.translation_noise ** 2) + fxy
-    s_r2 = jnp.where(rotating, config.rotation_noise ** 2, 0.0) + fth
-    cy = jnp.cos(yaw_pred)
-    sy = jnp.sin(yaw_pred)
-    # P = R diag(s_t2, fxy) R' on xy; theta independent
-    p00 = cy * cy * s_t2 + sy * sy * fxy
-    p01 = cy * sy * (s_t2 - fxy)
-    p11 = sy * sy * s_t2 + cy * cy * fxy
-    # information of the prior (2x2 xy block + theta)
-    det_p = p00 * p11 - p01 * p01
-    i_p = 1.0 / jnp.maximum(det_p, 1e-18)
-    lam = {
-        "a00": p11 * i_p,
-        "a01": -p01 * i_p,
-        "a02": jnp.zeros_like(p00),
-        "a11": p00 * i_p,
-        "a12": jnp.zeros_like(p00),
-        "a22": 1.0 / s_r2 * jnp.ones_like(p00),
-    }
-    eta = [jnp.zeros_like(px), jnp.zeros_like(px), jnp.zeros_like(px)]
-    log_w_add = jnp.zeros_like(px)
+    yaw_pred = wrap_angle(state.poses[:, 2] + rot_eff)
+    px = state.poses[:, 0] + trans_eff * jnp.cos(yaw_pred)
+    py = state.poses[:, 1] + trans_eff * jnp.sin(yaw_pred)
+    prior, lam = _proposal_prior(yaw_pred, s_t2, s_r2, fxy)
+    zero = jnp.zeros_like(px)
 
     lm_valid = state.lm_valid_mask()
 
     def accumulate(carry, zs):
-        lam, eta0, eta1, eta2, log_w_add = carry
         z, valid = zs
         dist_z, bearing_z = z[0], z[1]
-
         # associate against the world-frame observation from the PREDICTED pose
         wx = px + dist_z * jnp.cos(yaw_pred + bearing_z)
         wy = py + dist_z * jnp.sin(yaw_pred + bearing_z)
-        query = jnp.stack([wx, wy], axis=-1)
         idx, has_match = associate(
-            state.lm_mean, state.lm_cov, lm_valid, query, config
+            state.lm_mean, state.lm_cov, lm_valid,
+            jnp.stack([wx, wy], axis=-1), config,
         )
-        use = valid & has_match
-
         take = lambda arr: jnp.take_along_axis(
-            arr, idx[:, None, None] if arr.ndim == 3 else idx[:, None], axis=1
+            arr, idx[:, None, None], axis=1)[:, 0]
+        mu = take(state.lm_mean)                       # [P, 2]
+        sig = take(state.lm_cov)                       # [P, 4]
+        carry = _proposal_step(
+            carry, mu[:, 0], mu[:, 1], sig[:, 0], sig[:, 1], sig[:, 2],
+            sig[:, 3], valid & has_match, px, py, yaw_pred, dist_z,
+            bearing_z, prior, s_r2, evidence_scale, config,
         )
-        mu = jnp.squeeze(take(state.lm_mean), 1)       # [P, 2]
-        sig = jnp.squeeze(take(state.lm_cov), 1)       # [P, 4]
-
-        dx = mu[:, 0] - px
-        dy = mu[:, 1] - py
-        q = jnp.maximum(dx * dx + dy * dy, 1e-12)
-        r = jnp.sqrt(q)
-        nu_r = dist_z - r
-        nu_b = wrap_angle(bearing_z - (jnp.arctan2(dy, dx) - yaw_pred))
-
-        # landmark-side innovation covariance S~ = Hm Sig Hm' + R
-        h00 = dx / r
-        h01 = dy / r
-        h10 = -dy / q
-        h11 = dx / q
-        a, b, c, d = sig[:, 0], sig[:, 1], sig[:, 2], sig[:, 3]
-        u0 = h00 * a + h01 * c
-        u1 = h00 * b + h01 * d
-        v0 = h10 * a + h11 * c
-        v1 = h10 * b + h11 * d
-        rn = config.measurement_noise
-        s00 = u0 * h00 + u1 * h01 + rn
-        s01 = u0 * h10 + u1 * h11
-        s11 = v0 * h10 + v1 * h11 + rn
-        s_det = jnp.maximum(s00 * s11 - s01 * s01, 1e-18)
-        si = 1.0 / s_det
-        i00, i01, i11 = s11 * si, -s01 * si, s00 * si
-
-        # chi^2 innovation gate (99% for 2 dof): a measurement whose
-        # innovation is implausible under S~ is a likely mis-association —
-        # feeding it to the proposal would *pull* the pose toward a wrong
-        # consistency instead of merely down-weighting the particle
-        maha_gate = (i00 * nu_r * nu_r + 2.0 * i01 * nu_r * nu_b
-                     + i11 * nu_b * nu_b)
-        use = use & (maha_gate < 9.21)
-
-        # pose Jacobian Hx = [[-dx/r, -dy/r, 0], [dy/q, -dx/q, -1]]
-        g00, g01, g02 = -h00, -h01, jnp.zeros_like(h00)
-        g10, g11_, g12 = -h10, -h11, -jnp.ones_like(h00)
-
-        # Hx' S~^-1 Hx (symmetric 3x3) and Hx' S~^-1 nu
-        # w-columns: S~^-1 rows applied to Hx
-        t00 = i00 * g00 + i01 * g10
-        t01 = i00 * g01 + i01 * g11_
-        t02 = i00 * g02 + i01 * g12
-        t10 = i01 * g00 + i11 * g10
-        t11 = i01 * g01 + i11 * g11_
-        t12 = i01 * g02 + i11 * g12
-
-        d00 = g00 * t00 + g10 * t10
-        d01 = g00 * t01 + g10 * t11
-        d02 = g00 * t02 + g10 * t12
-        d11 = g01 * t01 + g11_ * t11
-        d12 = g01 * t02 + g11_ * t12
-        d22 = g02 * t02 + g12 * t12
-
-        e0 = t00 * nu_r + t10 * nu_b
-        e1 = t01 * nu_r + t11 * nu_b
-        e2 = t02 * nu_r + t12 * nu_b
-
-        usef = use.astype(dt)
-        # mode dial: scale the proposal information only — never the weight
-        luse = usef if evidence_scale is None else usef * evidence_scale
-        lam = {
-            "a00": lam["a00"] + luse * d00,
-            "a01": lam["a01"] + luse * d01,
-            "a02": lam["a02"] + luse * d02,
-            "a11": lam["a11"] + luse * d11,
-            "a12": lam["a12"] + luse * d12,
-            "a22": lam["a22"] + luse * d22,
-        }
-        eta0 = eta0 + luse * e0
-        eta1 = eta1 + luse * e1
-        eta2 = eta2 + luse * e2
-
-        # evidence weight: N(nu; 0, S~ + Hx P0 Hx')  — prior-inflated
-        # innovation covariance (project the motion prior through Hx)
-        # Hx P0 Hx' with P0 = [[p00,p01,0],[p01,p11,0],[0,0,s_r2]]
-        q00 = g00 * (p00 * g00 + p01 * g01) + g01 * (p01 * g00 + p11 * g01)
-        q01 = g00 * (p00 * g10 + p01 * g11_) + g01 * (p01 * g10 + p11 * g11_)
-        q11 = (g10 * (p00 * g10 + p01 * g11_) + g11_ * (p01 * g10 + p11 * g11_)
-               + s_r2 * g12 * g12)
-        z00 = s00 + q00
-        z01 = s01 + q01
-        z11 = s11 + q11
-        z_det = jnp.maximum(z00 * z11 - z01 * z01, 1e-30)
-        zi = 1.0 / z_det
-        maha = (z11 * nu_r * nu_r - 2.0 * z01 * nu_r * nu_b + z00 * nu_b * nu_b) * zi
-        log_ev = -0.5 * (maha + jnp.log(z_det)) - _LOG_TWO_PI
-        log_w_add = log_w_add + jnp.where(use, log_ev, 0.0)
-
-        return (lam, eta0, eta1, eta2, log_w_add), None
+        return carry, None
 
     (lam, eta0, eta1, eta2, log_w_add), _ = jax.lax.scan(
-        accumulate, (lam, eta[0], eta[1], eta[2], log_w_add),
+        accumulate, (lam, zero, zero, zero, zero),
         (measurements.range_bearing, measurements.valid),
     )
-
-    sigma = _inv3x3_sym(lam)
-    mu0 = px + sigma["a00"] * eta0 + sigma["a01"] * eta1 + sigma["a02"] * eta2
-    mu1 = py + sigma["a01"] * eta0 + sigma["a11"] * eta1 + sigma["a12"] * eta2
-    mu2 = yaw_pred + sigma["a02"] * eta0 + sigma["a12"] * eta1 + sigma["a22"] * eta2
-
-    l00, l10, l11, l20, l21, l22 = _chol3x3_sym(sigma)
-    n0, n1, n2 = noise[:, 0], noise[:, 1], noise[:, 2]
-    new_x = mu0 + l00 * n0
-    new_y = mu1 + l10 * n0 + l11 * n1
-    new_yaw = wrap_angle(mu2 + l20 * n0 + l21 * n1 + l22 * n2)
-
+    new_x, new_y, new_yaw = _sample_pose(
+        lam, eta0, eta1, eta2, px, py, yaw_pred,
+        noise[:, 0], noise[:, 1], noise[:, 2],
+    )
     poses = jnp.stack([new_x, new_y, new_yaw], axis=-1)
     # weight source (config.fs2_evidence_weights): evidence here XOR the
     # landmark-EKF likelihood pass (fastslam_step sets update_weights
@@ -644,17 +665,13 @@ def systematic_resample_indices(weights: jax.Array, u0: jax.Array) -> jax.Array:
     whose cumulative weight reaches ``u_m``, clipped at N-1 (the reference
     clamps the same way at ``:192``).
 
-    TPU note (round 5, measured): ``jnp.searchsorted`` of N positions into
-    the N-element cumsum lowers to ~log2(N) binary-search rounds, each a
-    full dynamic lane-gather — 12.5 ms at P=100k, 2.5x the whole filter
-    step, and the reason the online loop collapsed to ~13 ms/tick whenever
-    Neff triggered resampling.  The positions are an ARITHMETIC GRID, so
-    the search has a closed form: the number of grid points strictly below
-    ``cum_j`` is ``S_j ~= ceil((cum_j - u0) * N)`` (two elementwise
-    correction steps reproduce float32 ``searchsorted`` comparisons
-    exactly), and the ancestor map is the staircase inverse of the sorted
-    ``S`` — one masked scatter + one prefix-max.  Total: two lane scans +
-    one scatter, ~4 ms at 100k (bit-identical indices, pinned by
+    The positions are an ARITHMETIC GRID, so the search has a closed form
+    instead of a ``jnp.searchsorted`` of N positions (log2(N) rounds of
+    gathers): the number of grid points strictly below ``cum_j`` is
+    ``S_j ~= ceil((cum_j - u0) * N)`` (two elementwise correction steps
+    reproduce float32 ``searchsorted`` comparisons exactly), and the
+    ancestor map is the staircase inverse of the sorted ``S`` — one masked
+    scatter + one prefix-max (bit-identical indices, pinned by
     tests/test_kernels.py against ``jnp.searchsorted``).
 
     Args:
@@ -801,13 +818,13 @@ def fastslam_step(
 
 
 # ---------------------------------------------------------------------------
-# planes-native step (Pallas layout carried between steps)
+# planes-native steps (fused kernel, [L, P] layout carried between steps)
 # ---------------------------------------------------------------------------
 
 def resample_planes_state(state: PlanesState, idx: jax.Array,
                           config: FastSLAMConfig) -> PlanesState:
     """Ancestor gather in the planes layout: landmark planes gather along the
-    particle (lane) axis, per-particle arrays along axis 0."""
+    particle (minor) axis, per-particle arrays along axis 0."""
     n = state.num_particles
     if config.parity_mode:
         new_log_w = jnp.take(state.log_weights, idx, axis=0)
@@ -850,6 +867,128 @@ def fs2_prior_scalars(
     return rot_eff, trans_eff, s_t2, s_r2, fxy
 
 
+def _pin_planes(state: PlanesState, config: FastSLAMConfig, mesh):
+    if mesh is None:
+        return state
+    from fastslam_tpu.parallel.mesh import planes_state_sharding
+
+    shardings = planes_state_sharding(mesh, config)
+    return jax.tree.map(jax.lax.with_sharding_constraint, state, shardings)
+
+
+def _planes_ticks(state: PlanesState, rotations, translations,
+                  measurements: Measurements, config: FastSLAMConfig,
+                  k_rot, k_trans, proposal_floors=None, evidence_scale=None,
+                  mesh=None, tile=None):
+    """C ticks of sampling + measurement update through the fused kernel.
+
+    ``rotations``/``translations`` are ``[C]``; measurements ``[C, M, ...]``.
+    Motion proposal: per-tick, per-particle noisy increments with the
+    reference's rotation-XOR-translation structure (same draws as
+    :func:`fastslam_step` at C=1).  FastSLAM 2.0 proposal: standard-normal
+    pose-sample draws plus the per-tick prior scalars; the kernel predicts,
+    accumulates the proposal, samples, then runs the EKF.
+
+    With a ``mesh`` the kernel runs per shard under ``shard_map`` (it is
+    particle-parallel: no collectives inside a chunk).  ``tile`` is an
+    optional ``(particles per program, warps)`` for the kernel, a
+    scheduling choice that leaves results unchanged (tuning sweeps).
+
+    Returns ``((tx, ty, tyaw, tlogw) [C, P] per-tick rows, planes, count)``.
+    """
+    from fastslam_tpu.core.pallas_kernels import NUM_WARPS, filter_ticks
+
+    p = state.num_particles
+    c = rotations.shape[0]
+    dt = state.poses.dtype
+    if config.proposal_mode == "fastslam2" and not config.parity_mode:
+        # (C, P, 3) then transposed: at C=1 the same draws as fastslam_step
+        noise = jax.random.normal(k_rot, (c, p, 3), dtype=dt)
+        rot_eff, trans_eff, s_t2, s_r2, fxy = fs2_prior_scalars(
+            rotations, translations, config, proposal_floors
+        )
+        dial = (jnp.ones((c,), dt) if evidence_scale is None
+                else jnp.broadcast_to(jnp.asarray(evidence_scale, dt), (c,)))
+        tick_rows = (noise[:, :, 0], noise[:, :, 1], noise[:, :, 2])
+        tick_scalars = jnp.stack(
+            [rot_eff, trans_eff, s_t2, s_r2,
+             jnp.broadcast_to(jnp.asarray(fxy, dt), (c,)), dial], axis=1,
+        ).astype(dt)
+    else:
+        # reference motion structure (fast_slam_2.py:77-82): per tick, EITHER
+        # rotation with rotation noise OR translation with translation noise
+        rot_noise = config.rotation_noise * jax.random.normal(
+            k_rot, (c, p), dtype=dt)
+        trans_noise = config.translation_noise * jax.random.normal(
+            k_trans, (c, p), dtype=dt)
+        rotating = (rotations != 0.0)[:, None]
+        tick_rows = (
+            jnp.where(rotating, rotations[:, None] + rot_noise, 0.0),
+            jnp.where(rotating, 0.0, translations[:, None] + trans_noise),
+        )
+        tick_scalars = None
+
+    planes = (state.lm_mx, state.lm_my, state.lm_ca, state.lm_cb,
+              state.lm_cc, state.lm_cd)
+
+    block, warps = tile or (None, NUM_WARPS)
+
+    def run(poses, logw, planes, count, rows, rb, valid, scalars):
+        return filter_ticks(poses, logw, planes, count, rb, valid, rows,
+                            scalars, config,
+                            interpret=config.pallas_interpret,
+                            block=block, num_warps=warps)
+
+    args = (state.poses, state.log_weights, planes, state.lm_count,
+            tick_rows, measurements.range_bearing, measurements.valid,
+            tick_scalars)
+    if mesh is None:
+        return run(*args)
+
+    from jax import shard_map
+    from jax.sharding import PartitionSpec as P
+
+    pax = config.particle_axis
+    plane = P(None, pax)
+    planes_spec = tuple(None if x is None else plane for x in planes)
+    rows_spec = (plane,) * len(tick_rows)
+    return shard_map(
+        run, mesh=mesh,
+        in_specs=(P(pax, None), P(pax), planes_spec, P(pax), rows_spec,
+                  P(), P(), None if tick_scalars is None else P()),
+        out_specs=((plane,) * 4, planes_spec, P(pax)),
+        check_vma=False,
+    )(*args)
+
+
+def _with_ticks_result(state: PlanesState, traj, planes, count, rng,
+                       tick: int) -> PlanesState:
+    tx, ty, tyaw, tlogw = traj
+    mx, my, ca, cb, cc, cd = planes
+    return state._replace(
+        poses=jnp.stack([tx[tick], ty[tick], tyaw[tick]], axis=-1),
+        log_weights=tlogw[tick], lm_mx=mx, lm_my=my, lm_ca=ca, lm_cb=cb,
+        lm_cc=cc, lm_cd=cd, lm_count=count, rng=rng,
+    )
+
+
+def _normalize_and_resample(state: PlanesState, u0, config, mesh):
+    p = state.num_particles
+    log_w = normalize_log_weights(state.log_weights, config)
+    state = state._replace(log_weights=log_w)
+    neff = effective_particles(log_w, config)
+
+    def do_resample(s):
+        idx = systematic_resample_indices(jnp.exp(s.log_weights), u0)
+        return resample_planes_state(s, idx, config)
+
+    state = jax.lax.cond(
+        neff < config.resample_threshold_frac * p, do_resample,
+        lambda s: s, state,
+    )
+    return _pin_planes(state, config, mesh)
+
+
 def fastslam_step_planes(
     state: PlanesState,
     rotation: jax.Array,
@@ -858,101 +997,33 @@ def fastslam_step_planes(
     config: FastSLAMConfig,
     proposal_floors: Tuple[jax.Array, jax.Array] | None = None,
     evidence_scale: jax.Array | None = None,
-    *,
-    assoc_bf16: bool = False,
-    assoc_shadow: bool = False,
-    # 2-measurement unrolling: bit-exact, measured 5.44 -> 5.09 ms/tick
-    # per-tick and 3.17 -> 2.75 chunked at P=100k/L=64/M=16 (PLAN.md);
-    # falls back to 1 when it does not divide max_measurements
-    unroll: int = 2,
-    _skip_ekf: bool = False,
+    mesh=None,
+    tile: Tuple[int, int] | None = None,
 ) -> Tuple[PlanesState, jax.Array]:
     """One full filter iteration on the planes-layout state.
 
-    Identical math and RNG stream to :func:`fastslam_step` with
-    ``use_pallas=True``, but the landmark state stays in the kernel's native
-    ``[L, P]`` layout between steps — no per-step ``[P, L] <-> [L, P]``
-    transposes (~600 MB HBM/step saved at P=100k, L=64).
-
-    ``proposal_mode='fastslam2'`` (production only) runs the fused
-    proposal+EKF kernel: the measurement-informed pose posterior
-    (:func:`fastslam2_propose`'s math) accumulates, samples, and applies the
-    landmark EKF in ONE kernel invocation with the planes VMEM-resident —
-    the in-kernel trig is polynomial (~1e-7), so results track the blocks
-    path to float tolerance rather than bit-exactly.
+    Same math and RNG stream as :func:`fastslam_step`; the sampling and the
+    measurement update run as one fused kernel launch
+    (:func:`~fastslam_tpu.core.pallas_kernels.filter_ticks`, C=1) that keeps
+    each particle tile's landmark planes on chip across all M measurements.
+    ``mesh`` (a 1-D particle mesh) runs the kernel per shard and pins the
+    state's sharding; weights, Neff and resampling stay under GSPMD.
+    ``tile`` overrides the kernel's ``(particles per program, warps)``.
     """
     rng, k_rot, k_trans, k_u = jax.random.split(state.rng, 4)
-    p = state.num_particles
-    dt = state.poses.dtype
-
-    if config.proposal_mode == "fastslam2" and not config.parity_mode:
-        from fastslam_tpu.core.pallas_kernels import fused_fs2_planes
-
-        noise = jax.random.normal(k_rot, (p, 3), dtype=dt)
-        rot_eff, trans_eff, s_t2, s_r2, fxy = fs2_prior_scalars(
-            rotation, translation, config, proposal_floors
-        )
-        # deterministic mean-motion prediction (exact XLA trig; matches
-        # fastslam2_propose's prediction block bit-for-bit)
-        yaw_pred = wrap_angle(state.poses[:, 2] + rot_eff)
-        px = state.poses[:, 0] + trans_eff * jnp.cos(yaw_pred)
-        py = state.poses[:, 1] + trans_eff * jnp.sin(yaw_pred)
-        pred = jnp.stack([px, py, yaw_pred], axis=-1)
-
-        poses, logw, mx, my, ca, cb, cc, cd, cnt = fused_fs2_planes(
-            pred, state.log_weights,
-            state.lm_mx, state.lm_my, state.lm_ca, state.lm_cb,
-            state.lm_cc, state.lm_cd, state.lm_count,
-            measurements.range_bearing, measurements.valid,
-            noise, s_t2, s_r2, fxy, config,
-            evidence_scale=evidence_scale,
-            interpret=config.pallas_interpret,
-        )
-        state = state._replace(
-            poses=poses, log_weights=logw, lm_mx=mx, lm_my=my, lm_ca=ca,
-            lm_cb=cb, lm_cc=cc, lm_cd=cd, lm_count=cnt, rng=rng,
-        )
-    else:
-        from fastslam_tpu.core.pallas_kernels import fused_update_planes
-
-        rot_noise = config.rotation_noise * jax.random.normal(
-            k_rot, (p,), dtype=dt
-        )
-        trans_noise = config.translation_noise * jax.random.normal(
-            k_trans, (p,), dtype=dt
-        )
-        poses = propagate_particles(
-            state.poses, rotation, translation, rot_noise, trans_noise
-        )
-        state = state._replace(poses=poses, rng=rng)
-
-        logw, mx, my, ca, cb, cc, cd, cnt = fused_update_planes(
-            state.poses, state.log_weights,
-            state.lm_mx, state.lm_my, state.lm_ca, state.lm_cb,
-            state.lm_cc, state.lm_cd, state.lm_count,
-            measurements.range_bearing, measurements.valid, config,
-            interpret=config.pallas_interpret, assoc_bf16=assoc_bf16,
-            assoc_shadow=assoc_shadow, unroll=unroll,
-            _skip_ekf=_skip_ekf,
-        )
-        state = state._replace(
-            log_weights=logw, lm_mx=mx, lm_my=my, lm_ca=ca, lm_cb=cb,
-            lm_cc=cc, lm_cd=cd, lm_count=cnt,
-        )
-
-    log_w = normalize_log_weights(state.log_weights, config)
-    state = state._replace(log_weights=log_w)
-
-    neff = effective_particles(log_w, config)
-    u0 = jax.random.uniform(k_u, (), dtype=dt, maxval=1.0 / p)
-
-    def do_resample(s):
-        idx = systematic_resample_indices(jnp.exp(s.log_weights), u0)
-        return resample_planes_state(s, idx, config)
-
-    state = jax.lax.cond(
-        neff < config.resample_threshold_frac * p, do_resample, lambda s: s, state
+    state = _pin_planes(state, config, mesh)
+    traj, planes, count = _planes_ticks(
+        state, jnp.reshape(rotation, (1,)), jnp.reshape(translation, (1,)),
+        Measurements(measurements.range_bearing[None],
+                     measurements.valid[None]),
+        config, k_rot, k_trans, proposal_floors,
+        None if evidence_scale is None else jnp.reshape(evidence_scale, (1,)),
+        mesh=mesh, tile=tile,
     )
+    state = _with_ticks_result(state, traj, planes, count, rng, 0)
+    u0 = jax.random.uniform(k_u, (), dtype=state.poses.dtype,
+                            maxval=1.0 / state.num_particles)
+    state = _normalize_and_resample(state, u0, config, mesh)
     best = jnp.argmax(state.log_weights)
     return state, state.poses[best]
 
@@ -965,29 +1036,23 @@ def fastslam_steps_planes_chunked(
     config: FastSLAMConfig,
     proposal_floors: Tuple[jax.Array, jax.Array] | None = None,
     evidence_scale: jax.Array | None = None,  # [C] per-tick mode dial
-    *,
-    assoc_bf16: bool = False,
-    assoc_shadow: bool = False,
-    unroll: int = 2,   # bit-exact scheduling win — see fastslam_step_planes
+    mesh=None,
+    tile: Tuple[int, int] | None = None,
 ) -> Tuple[PlanesState, jax.Array]:
-    """C filter ticks in ONE fused kernel invocation (production mode only).
+    """C filter ticks in ONE fused kernel launch (production mode only).
 
-    The landmark planes stay VMEM-resident across the whole chunk, so the
-    five-plane HBM stream — the per-tick fixed cost of
-    :func:`fastslam_step_planes` (~300 MB/tick at P=100k, L=64) — is paid
-    once per chunk instead of once per tick.  Semantics vs the per-tick step:
+    The landmark planes stay on chip across the whole chunk, so their
+    read/write — the per-tick fixed cost of :func:`fastslam_step_planes` —
+    is paid once per chunk.  Semantics vs the per-tick step:
 
-    * Propagation and the measurement update are the same math (the kernel
-      shares :func:`~fastslam_tpu.core.pallas_kernels._apply_measurement`
-      with the per-tick kernel); in-kernel propagation advances (cos yaw,
-      sin yaw) by angle addition, float-equal to the per-tick path within
-      ~1 ulp/tick rather than bit-identical.
+    * Sampling and the measurement update are the same math (the kernel
+      runs the same tick body C times).
     * Weight normalization, Neff, and systematic resampling run at CHUNK
       boundaries only — within a chunk log-weights accumulate unnormalized
       (numerically stable in log space; normalization only shifts all
       particles equally).  A mid-chunk Neff collapse is therefore acted on
-      up to C-1 ticks late; choose C accordingly (4-16 is a good range —
-      the eval suite's chunked rows track the accuracy cost).
+      up to C-1 ticks late; choose C accordingly (the eval suite's chunked
+      rows track the accuracy cost).
     * Per-tick pose estimates come from the per-tick argmax of the
       accumulated log-weights (normalization-invariant), BEFORE the
       chunk-boundary resample — identical to the per-tick estimate except on
@@ -1004,80 +1069,20 @@ def fastslam_steps_planes_chunked(
             "resamples per tick (fast_slam_2.py:62) — use fastslam_step_planes"
         )
     rng, k_rot, k_trans, k_u = jax.random.split(state.rng, 4)
-    p = state.num_particles
     c = rotations.shape[0]
-    dt = state.poses.dtype
-
-    if config.proposal_mode == "fastslam2":
-        from fastslam_tpu.core.pallas_kernels import fused_fs2_planes_multi
-
-        noise = jax.random.normal(k_rot, (c, 3, p), dtype=dt)
-        rot_eff, trans_eff, s_t2, s_r2, fxy = fs2_prior_scalars(
-            rotations, translations, config, proposal_floors
-        )
-        tx, ty, tyaw, tlogw, mx, my, ca, cb, cc, cd, cnt = (
-            fused_fs2_planes_multi(
-                state.poses, state.log_weights,
-                state.lm_mx, state.lm_my, state.lm_ca, state.lm_cb,
-                state.lm_cc, state.lm_cd, state.lm_count,
-                measurements.range_bearing, measurements.valid,
-                noise, rot_eff, trans_eff, s_t2, s_r2, fxy, config,
-                evidence_scale=evidence_scale,
-                interpret=config.pallas_interpret, unroll=unroll,
-            )
-        )
-    else:
-        from fastslam_tpu.core.pallas_kernels import fused_update_planes_multi
-
-        # reference motion structure (fast_slam_2.py:77-82): per tick, EITHER
-        # rotation with rotation noise OR translation with translation noise
-        rot_noise = config.rotation_noise * jax.random.normal(
-            k_rot, (c, p), dtype=dt
-        )
-        trans_noise = config.translation_noise * jax.random.normal(
-            k_trans, (c, p), dtype=dt
-        )
-        rotating = (rotations != 0.0)[:, None]
-        noisy_rot = jnp.where(rotating, rotations[:, None] + rot_noise, 0.0)
-        noisy_trans = jnp.where(
-            rotating, 0.0, translations[:, None] + trans_noise
-        )
-
-        tx, ty, tyaw, tlogw, mx, my, ca, cb, cc, cd, cnt = (
-            fused_update_planes_multi(
-                state.poses, state.log_weights,
-                state.lm_mx, state.lm_my, state.lm_ca, state.lm_cb,
-                state.lm_cc, state.lm_cd, state.lm_count,
-                measurements.range_bearing, measurements.valid,
-                noisy_rot, noisy_trans, config,
-                interpret=config.pallas_interpret, assoc_bf16=assoc_bf16,
-                assoc_shadow=assoc_shadow, unroll=unroll,
-            )
-        )
-
+    state = _pin_planes(state, config, mesh)
+    traj, planes, count = _planes_ticks(
+        state, rotations, translations, measurements, config, k_rot, k_trans,
+        proposal_floors, evidence_scale, mesh=mesh, tile=tile,
+    )
+    tx, ty, tyaw, tlogw = traj
     # per-tick pose estimates: argmax of the (unnormalized) per-tick weights
     best = jnp.argmax(tlogw, axis=1)                            # [C]
     ticks = jnp.arange(c)
     est = jnp.stack(
         [tx[ticks, best], ty[ticks, best], tyaw[ticks, best]], axis=-1
     )
-
-    log_w = normalize_log_weights(tlogw[c - 1], config)
-    state = state._replace(
-        poses=jnp.stack([tx[c - 1], ty[c - 1], tyaw[c - 1]], axis=-1),
-        log_weights=log_w,
-        lm_mx=mx, lm_my=my, lm_ca=ca, lm_cb=cb, lm_cc=cc, lm_cd=cd,
-        lm_count=cnt, rng=rng,
-    )
-
-    neff = effective_particles(log_w, config)
-    u0 = jax.random.uniform(k_u, (), dtype=dt, maxval=1.0 / p)
-
-    def do_resample(s):
-        idx = systematic_resample_indices(jnp.exp(s.log_weights), u0)
-        return resample_planes_state(s, idx, config)
-
-    state = jax.lax.cond(
-        neff < config.resample_threshold_frac * p, do_resample, lambda s: s, state
-    )
-    return state, est
+    state = _with_ticks_result(state, traj, planes, count, rng, c - 1)
+    u0 = jax.random.uniform(k_u, (), dtype=state.poses.dtype,
+                            maxval=1.0 / state.num_particles)
+    return _normalize_and_resample(state, u0, config, mesh), est

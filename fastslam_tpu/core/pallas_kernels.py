@@ -1,1933 +1,297 @@
-"""Pallas TPU kernels for the hot paths.
+"""The fused filter tick: one Pallas kernel for NVIDIA GPUs (Triton route).
 
-Two kernels, per the north-star design (BASELINE.json):
+The XLA path (``kernels.update_particles``) is a ``lax.scan`` over the M
+measurements of a tick, and every step reads and writes the whole
+``[P, L]`` landmark map.  Here one program owns a tile of ``T`` particles and
+keeps that tile's landmark planes (``[L, T]`` per component, particles on the
+minor axis so loads coalesce) on chip for C whole ticks:
 
-* :func:`fused_update` — the batched associate + 2x2-EKF + weight update for
-  ALL measurements of a tick in one kernel.  The XLA ``lax.scan`` formulation
-  (core/kernels.py:update_particles) re-reads and re-writes the full
-  ``[P, L]`` landmark block from HBM once per measurement (M x 300 MB at
-  P=100k, L=64); this kernel tiles particles onto the grid, loads each tile's
-  landmark block into VMEM once, runs the serial measurement loop on-chip,
-  and writes back once — ~M-fold less HBM traffic for the dominant cost.
-  The arithmetic is bit-identical to the scan path (same formulas in the
-  same order, f32).
+  per tick: sample the pose (motion model, or the FastSLAM 2.0 proposal —
+  predict, accumulate the measurement-informed posterior, Cholesky-sample),
+  then the serial measurement loop — association, 2x2 EKF, weight, append.
 
-* :func:`icp_correspondences` — tiled nearest-neighbour search for large
-  point clouds (the ICP inner loop), tiling source points over the grid with
-  the target cloud resident in VMEM, computing the [tile, M] distance matrix
-  on the VPU.
-
-Layout note: landmark state is passed as six separate ``[P, L]`` component
-planes (mean x/y, cov a/b/c/d) rather than ``[P, L, k]`` so the lane
-dimension is the landmark-slot axis — dense VPU math, no strided access.
-Scalars (weights, counts) ride as ``[P, 1]`` columns.
+The planes move between device memory and the chip once per launch instead
+of once per measurement.  The arithmetic is the XLA path's own: the kernel
+calls the same helpers from ``core/kernels.py`` on ``[1, T]`` rows and
+``[L, T]`` planes.  Programs are independent (one particle tile each), so the
+grid runs in any order.  Random draws come from ``jax.random`` outside.
 """
 
 from __future__ import annotations
 
 import functools
-import math
+from types import MappingProxyType
 from typing import Tuple
 
 import jax
 import jax.numpy as jnp
 from jax.experimental import pallas as pl
-from jax.experimental.pallas import tpu as pltpu
+from jax.experimental.pallas import triton as plgpu
 
 from fastslam_tpu.config import FastSLAMConfig
+from fastslam_tpu.core import kernels as K
 
-# NOTE: pure-Python math, not jnp — this module is imported lazily, possibly
-# inside an active jit trace, where any jnp op would produce a tracer.
-_LOG_TWO_PI = math.log(2.0 * math.pi)
-_PI = math.pi
-
-# packed-argmin sentinel: +inf bits with all slot bits set — larger than any
-# valid (finite, non-negative) distance key
-_INVALID_KEY = 0x7F8000FF
-
-
-def _f32_bits(x: float) -> int:
-    """Bit pattern of a non-negative f32 as a Python int (compile-time)."""
-    import struct
-
-    return struct.unpack("<i", struct.pack("<f", float(x)))[0]
+# particles per program, per proposal, and warps per program: the fastest
+# of T in {16, 32, 64} x warps in {2, 4, 8} on the H100 at P=100k, L=64,
+# M=16 (PERF.md; scripts/time_filter_step.py --sweep).  Callers that
+# sweep them pass ``filter_ticks(block=, num_warps=)``.
+BLOCK = MappingProxyType({"motion": 32, "fastslam2": 16})
+NUM_WARPS = 2
 
 
-def _atan_poly(x):
-    """Cephes-style single-precision atan for x >= 0 (max err ~1e-7 rad).
-
-    Mosaic does not lower ``atan2``/``atan``/``sin``/``cos``; inside kernels
-    all trig must be built from polynomial-friendly ops.  Range reduction:
-    x > tan(3pi/8) -> pi/2 - atan(1/x); x > tan(pi/8) -> pi/4 + atan((x-1)/(x+1)).
-    """
-    t3p8 = 2.414213562373095  # tan(3*pi/8)
-    tp8 = 0.4142135623730950  # tan(pi/8)
-
-    big = x > t3p8
-    mid = (x > tp8) & ~big
-    xr = jnp.where(big, -1.0 / jnp.where(x == 0.0, 1.0, x),
-                   jnp.where(mid, (x - 1.0) / (x + 1.0), x))
-    base = jnp.where(big, _PI / 2.0, jnp.where(mid, _PI / 4.0, 0.0))
-    z = xr * xr
-    p = (((8.05374449538e-2 * z - 1.38776856032e-1) * z + 1.99777106478e-1)
-         * z - 3.33329491539e-1) * z * xr + xr
-    return base + p
+def _pow2(n: int) -> int:
+    return 1 << max(n - 1, 0).bit_length()
 
 
-def _atan2(y, x):
-    """Vectorized atan2 from the polynomial atan (quadrant-corrected)."""
-    ax = jnp.abs(x)
-    ay = jnp.abs(y)
-    safe_ax = jnp.where(ax == 0.0, 1.0, ax)
-    a = _atan_poly(ay / safe_ax)              # angle in [0, pi/2) vs +x axis
-    a = jnp.where(ax == 0.0, _PI / 2.0, a)    # on the y axis
-    a = jnp.where(x < 0.0, _PI - a, a)        # left half-plane
-    a = jnp.where(y < 0.0, -a, a)             # lower half-plane
-    # atan2(0, x<0) = +pi, atan2(0, x>=0) = 0
-    a = jnp.where((y == 0.0) & (x < 0.0), _PI, a)
-    a = jnp.where((y == 0.0) & (x >= 0.0), 0.0, a)
-    return a
+def particle_block(num_particles: int, block: int = BLOCK["motion"]) -> int:
+    """Particles per program: ``block``, or the next power of two above a
+    smaller particle count (Triton block shapes are powers of two; the
+    kernel masks the tail of the last tile, so P needs no padding)."""
+    return min(block, max(16, _pow2(num_particles)))
 
 
-def _wrap_pi(x):
-    """Wrap to (-pi, pi] for |x| < 3*pi without mod/floor."""
-    x = jnp.where(x > _PI, x - 2.0 * _PI, x)
-    x = jnp.where(x < -_PI, x + 2.0 * _PI, x)
-    x = jnp.where(x > _PI, x - 2.0 * _PI, x)
-    x = jnp.where(x < -_PI, x + 2.0 * _PI, x)
-    return x
+def _gather(onehot, plane):
+    """The matched slot's value per particle (exact: one nonzero term)."""
+    return jnp.sum(jnp.where(onehot, plane, 0.0), axis=0, keepdims=True)
 
 
-def _sin_cos(x):
-    """Single-precision (sin, cos) for |x| <= pi — Cephes-style minimax
-    polynomials with branch-free quadrant folding (Mosaic lowers no sin/cos;
-    max error ~1 ulp over [-pi, pi]).  Wrap the argument with :func:`_wrap_pi`
-    first if it can exceed pi."""
-    y = jnp.abs(x)
-    sign_s = jnp.where(x < 0.0, -1.0, 1.0)
-    # quadrant fold: sin(pi - y) = sin(y), cos(pi - y) = -cos(y)
-    hi = y > _PI / 2.0
-    z = jnp.where(hi, _PI - y, y)
-    sign_c = jnp.where(hi, -1.0, 1.0)
-    # octant fold to [0, pi/4]: sin(z) = cos(pi/2 - z) and vice versa
-    octant = z > _PI / 4.0
-    w = jnp.where(octant, _PI / 2.0 - z, z)
-    ww = w * w
-    sp = ((-1.9515295891e-4 * ww + 8.3321608736e-3) * ww
-          - 1.6666654611e-1) * ww * w + w
-    cp = ((2.443315711809948e-5 * ww - 1.388731625493765e-3) * ww
-          + 4.166664568298827e-2) * ww * ww - 0.5 * ww + 1.0
-    sin_z = jnp.where(octant, cp, sp)
-    cos_z = jnp.where(octant, sp, cp)
-    return sign_s * sin_z, sign_c * cos_z
-
-
-def _lane_tile(p: int, max_tile: int = 256) -> int:
-    """Particle (lane) tile: a multiple of 128 (Mosaic lane-tiling rule);
-    the wrapper pads the particle axis up to a tile multiple.
-
-    SMALL tiles win: the measured v5e sweep at P=100k/L=64/M=16 is
-    monotonic down to 256 (per-tick 6.28 ms at 2048 -> 5.02 at 256; chunked
-    C=8 4.80 -> 3.61) — more grid steps pipeline the plane DMA under the
-    measurement-loop compute, and the smaller [L, tile] working set keeps
-    the loop's intermediates closer to the vector registers.  128 is
-    slightly worse (grid overhead), >=1024 clearly worse.
-    FASTSLAM_PALLAS_TILE overrides for tuning experiments."""
-    import os
-
-    max_tile = int(os.environ.get("FASTSLAM_PALLAS_TILE", max_tile))
-    if p <= max_tile:
-        return _round_up(p, 128)
-    return max_tile
-
-
-def _round_up(x: int, m: int) -> int:
-    return ((x + m - 1) // m) * m
-
-
-# ---------------------------------------------------------------------------
-# fused associate + EKF + weight update
-# ---------------------------------------------------------------------------
-
-def _apply_measurement(
-    carry, pose_rows, z_scalars, *,
-    slot, gate, meas_noise, default_cov, parity, assoc_bf16, skip_ekf,
-    weight_update: bool = True, shadow: bool = False, sym: bool = False,
-    key_row=None, reuse_scratch=None,
-):
-    """One measurement through association + 2x2 EKF + weighting, on a
-    particle tile in the planes layout.  Shared by the single-tick kernel
-    (:func:`_fused_update_kernel`) and the multi-tick chunked kernel
-    (:func:`_fused_multi_kernel`) — the arithmetic must stay identical.
-    ``weight_update=False`` runs the map EKF without multiplying the
-    measurement likelihood into the weights (used when the FastSLAM 2.0
-    proposal already carried the evidence weight —
-    ``config.fs2_evidence_weights``).
-
-    ``sym=True`` drops the redundant ``cc`` covariance plane: the production
-    EKF symmetrizes every covariance write (``new_b == new_c`` below) and
-    appends set ``b = c = 0``, so ``cc == cb`` is invariant on that path.
-    The carry omits ``cc``; formulas read ``cb`` in its place (bit-identical
-    values), the matched-slot gather and the slot-write select for ``cc``
-    disappear (~4 [L, T] passes/measurement), and one whole [L, P] plane
-    drops out of the HBM stream and the VMEM working set.  Production mode
-    only — the parity path keeps the reference's asymmetric (I-KH)S update
-    (fast_slam_2.py:146) exactly.
-
-    ``shadow=True`` carries six EXTRA bf16 copies of the landmark planes and
-    runs the association distance math on them at 2x lane density — unlike
-    ``assoc_bf16`` (which converts the f32 planes per measurement and was
-    measured net-negative), the shadows convert only on slot WRITES.  The
-    EKF itself always reads/writes the f32 planes.  Production mode only.
-
-    carry:      (mx, my, ca, cb, [cc,] cd [L, T], detp [L, T], cnt, logw
-                 [1, T]; no cc when sym
-                 [+ smx, smy, sca, scb, scc, scd bf16 [L, T] when shadow])
-    pose_rows:  (px, py, yaw, cyaw, syaw) as [1, T] rows
-    z_scalars:  (dist_z, bearing_z, cos_b, sin_b, z_ok) SMEM scalars
-    """
-    if shadow:
-        (mx, my, ca, cb, cc, cd, detp, cnt, logw,
-         smx, smy, sca, scb, scc, scd) = carry
-    elif sym:
-        mx, my, ca, cb, cd, detp, cnt, logw = carry
-        cc = cb  # alias — same values, no extra plane
+def _measurement(planes, cnt, logw, pose, z, slot, n_lm, config,
+                 weight_update):
+    """One measurement through association + EKF + append on a tile —
+    :func:`kernels.update_particles_one` in the planes layout.  Production
+    carries five planes (cc == cb, the EKF symmetrizes), parity six."""
+    sym = len(planes) == 5
+    if sym:
+        mx, my, ca, cb, cd = planes
+        cc = cb
     else:
-        mx, my, ca, cb, cc, cd, detp, cnt, logw = carry
-    px, py, yaw, cyaw, syaw = pose_rows
-    dist_z, bearing_z, cos_b, sin_b, z_ok = z_scalars
-    l = mx.shape[0]
-
-    # world-frame observation via angle addition (no in-kernel sin/cos):
-    # cos(yaw+b) = cos yaw cos b - sin yaw sin b, etc.
-    wx = px + dist_z * (cyaw * cos_b - syaw * sin_b)   # [1, T]
-    wy = py + dist_z * (syaw * cos_b + cyaw * sin_b)
-    if key_row is not None:
-        # association REUSED from the proposal pass's stored packed key
-        # (config.fs2_reuse_association): rebuild the one-hot from the
-        # [1, T] key row and skip the distance/key/min block (~20 [L, T]
-        # passes).  Production only; everything below the association —
-        # the matched-value gathers, the sequential EKF, the writes — is
-        # the same code, so the update semantics are unchanged.  The
-        # stored key predates this tick's APPENDS, so a duplicate guard
-        # runs in ROW space: lanes whose observation would have matched a
-        # landmark appended EARLIER THIS TICK (the full path's exact
-        # fresh-landmark association criterion, d^2 < gate^2*default_cov,
-        # checked against the tick's own appended observations recorded
-        # in ``reuse_scratch``) take no action this measurement instead
-        # of appending a duplicate.  Residual approximation vs the full
-        # path: such a lane's measurement is dropped instead of EKF-
-        # updating the just-appended (default-cov) landmark — a sub-cm
-        # one-tick difference on acquisition ticks only.
-        assert not parity and not shadow and not assoc_bf16
-        wxs_ref, wys_ref, apps_ref, m_idx = reuse_scratch
-        dup = jnp.zeros(wx.shape, jnp.bool_)
-
-        def _dup_body(j, dup):
-            dxj = wx - wxs_ref[pl.ds(j, 1), :]
-            dyj = wy - wys_ref[pl.ds(j, 1), :]
-            return dup | ((apps_ref[pl.ds(j, 1), :] > 0)
-                          & (dxj * dxj + dyj * dyj
-                             < gate * gate * default_cov))
-
-        dup = jax.lax.fori_loop(0, m_idx, _dup_body, dup)
-        dx_q = dy_q = None
-    elif parity:
-        qx = dist_z * cos_b                      # robot-frame quirk
-        qy = dist_z * sin_b
-        dx_q = mx - qx
-        dy_q = my - qy
+        mx, my, ca, cb, cc, cd = planes
+    px, py, yaw = pose
+    dist_z, bearing_z, z_ok = z
+    wx = px + dist_z * jnp.cos(yaw + bearing_z)
+    wy = py + dist_z * jnp.sin(yaw + bearing_z)
+    if config.parity_mode:
+        # reference quirk: robot-frame association query
+        qx, qy = dist_z * jnp.cos(bearing_z), dist_z * jnp.sin(bearing_z)
     else:
-        dx_q = mx - wx
-        dy_q = my - wy
-
-    if key_row is not None:
-        d2f = None
-    elif shadow:
-        # whole distance pass in bf16 against the shadow planes: only the
-        # two [1, T] observation rows convert per measurement
-        bf = jnp.bfloat16
-        dxb = smx - wx.astype(bf)
-        dyb = smy - wy.astype(bf)
-        d2f = (dxb * (scd * dxb - scb * dyb)
-               + dyb * (-scc * dxb + sca * dyb)).astype(mx.dtype)
-    elif assoc_bf16:
-        # distance math in bf16: 2x lane density on the dominant [L, T]
-        # ops; the gate boundary blurs by ~0.5% (production mode only)
-        bf = jnp.bfloat16
-        dxb = dx_q.astype(bf)
-        dyb = dy_q.astype(bf)
-        cab, cbb, ccb, cdb = (ca.astype(bf), cb.astype(bf),
-                              cc.astype(bf), cd.astype(bf))
-        d2f = (dxb * (cdb * dxb - cbb * dyb)
-               + dyb * (-ccb * dxb + cab * dyb)).astype(mx.dtype)
-    else:
-        d2f = dx_q * (cd * dx_q - cb * dy_q) + dy_q * (-cc * dx_q + ca * dy_q)
-    usable = detp > 0.0 if key_row is None else None
-
-    if key_row is not None:
-        gate_bits = _f32_bits(gate * gate)
-        has_match = key_row <= (((gate_bits - 1) & ~0xFF) | 0xFF)
-        idx = key_row & 0xFF
-    elif parity:
-        # Mahalanobis^2 gate WITHOUT a [L, T] divide: d2/det < gate^2 with
-        # det > 0  <=>  d2_raw < gate^2 * det.
-        hit = usable & (d2f < (gate * gate) * detp)
-        # first hit: min slot index among hits; a hit exists iff idx < L
-        idx = jnp.min(jnp.where(hit, slot, l), axis=0, keepdims=True)
-        has_match = idx < l                                  # [1, T]
-    else:
-        # best hit via ONE packed min-reduction: the normalized distance's
-        # f32 bit pattern is order-preserving for non-negative values, so
-        # drop its 8 mantissa LSBs, OR the slot index into them, and a
-        # single int32 min yields both the winner's distance *and* its
-        # slot (ties break toward the lower slot).  has_match falls out of
-        # comparing the packed min against gate^2's bit pattern — no `any`
-        # reduction, no hit mask, no second argmin pass.  The 8 dropped
-        # mantissa bits blur the gate boundary by ~2^-15 relative
-        # (production mode only; parity keeps exact semantics above).
-        inv_det = pl.reciprocal(jnp.where(usable, detp, 1.0), approx=True)
-        dist2 = jnp.maximum(d2f * inv_det, 0.0)
-        key = jax.lax.bitcast_convert_type(dist2, jnp.int32)
-        key = jnp.where(usable, (key & ~0xFF) | slot, _INVALID_KEY)
-        kmin = jnp.min(key, axis=0, keepdims=True)           # [1, T]
-        gate_bits = _f32_bits(gate * gate)
-        has_match = kmin <= (((gate_bits - 1) & ~0xFF) | 0xFF)
-        idx = kmin & 0xFF
-    onehot = (slot == idx) & has_match                       # [L, T]
-    oh = onehot.astype(mx.dtype)
-
-    if skip_ekf:
-        # timing experiment: association + append only
-        can_append = cnt < l
-        do_append = (~has_match) & can_append & z_ok
-        app = (slot == cnt) & do_append
-        mx = jnp.where(app, wx, mx)
-        my = jnp.where(app, wy, my)
-        ca = jnp.where(app, default_cov, ca)
-        cd = jnp.where(app, default_cov, cd)
-        detp = jnp.where(app, default_cov * default_cov, detp)
-        cnt = cnt + do_append.astype(jnp.int32)
-        # z_ok-gated so interior invalid measurement slots stay a strict no-op
-        logw = jnp.where(
-            z_ok, logw + jnp.sum(oh, axis=0, keepdims=True) * 1e-9, logw
-        )
-        if sym:
-            return mx, my, ca, cb, cd, detp, cnt, logw
-        return mx, my, ca, cb, cc, cd, detp, cnt, logw
-
-    # gather matched slot by one-hot contraction (sublane reduction)
-    mu_x = jnp.sum(mx * oh, axis=0, keepdims=True)           # [1, T]
-    mu_y = jnp.sum(my * oh, axis=0, keepdims=True)
-    a = jnp.sum(ca * oh, axis=0, keepdims=True)
-    b = jnp.sum(cb * oh, axis=0, keepdims=True)
-    # cc == cb when sym, so its gather IS the b gather (one [L, T] pass saved)
-    c = b if sym else jnp.sum(cc * oh, axis=0, keepdims=True)
-    d = jnp.sum(cd * oh, axis=0, keepdims=True)
-
-    dx = mu_x - px
-    dy = mu_y - py
-    q = jnp.maximum(dx * dx + dy * dy, 1e-12)
-    rinv = jax.lax.rsqrt(q)           # rsqrt is a fast VPU op; divides are ~10x a mul
-    qinv = rinv * rinv
-    r = q * rinv
-    nu_r = dist_z - r
-    # nu_b = wrap(bearing - (atan2(dy,dx) - yaw)); range < 3*pi
-    nu_b = _wrap_pi(bearing_z + yaw - _atan2(dy, dx))
-
-    h00 = dx * rinv
-    h01 = dy * rinv
-    h10 = -dy * qinv
-    h11 = dx * qinv
-
-    u0 = h00 * a + h01 * c
-    u1 = h00 * b + h01 * d
-    v0 = h10 * a + h11 * c
-    v1 = h10 * b + h11 * d
-    s00 = u0 * h00 + u1 * h01 + meas_noise
-    s01 = u0 * h10 + u1 * h11
-    s10 = v0 * h00 + v1 * h01
-    s11 = v0 * h10 + v1 * h11 + meas_noise
-
-    s_det = s00 * s11 - s01 * s10
-    s_det_safe = jnp.maximum(jnp.abs(s_det), 1e-18) * jnp.sign(s_det + 1e-30)
-    sdi = 1.0 / s_det_safe            # one divide, four multiplies
-    i00 = s11 * sdi
-    i01 = -s01 * sdi
-    i10 = -s10 * sdi
-    i11 = s00 * sdi
-
-    m0 = a * h00 + b * h01
-    m1 = c * h00 + d * h01
-    n0 = a * h10 + b * h11
-    n1 = c * h10 + d * h11
-    k00 = m0 * i00 + n0 * i10
-    k01 = m0 * i01 + n0 * i11
-    k10 = m1 * i00 + n1 * i10
-    k11 = m1 * i01 + n1 * i11
-
-    new_mu_x = mu_x + k00 * nu_r + k01 * nu_b
-    new_mu_y = mu_y + k10 * nu_r + k11 * nu_b
-
-    g00 = 1.0 - (k00 * h00 + k01 * h10)
-    g01 = -(k00 * h01 + k01 * h11)
-    g10 = -(k10 * h00 + k11 * h10)
-    g11 = 1.0 - (k10 * h01 + k11 * h11)
-    new_a = g00 * a + g01 * c
-    new_b = g00 * b + g01 * d
-    new_c = g10 * a + g11 * c
-    new_d = g10 * b + g11 * d
-    if not parity:
-        off = 0.5 * (new_b + new_c)
-        new_b = off
-        new_c = off
-
-    maha = i00 * nu_r * nu_r + (i01 + i10) * nu_r * nu_b + i11 * nu_b * nu_b
-    log_lik = -0.5 * (maha + jnp.log(jnp.maximum(s_det, 1e-30))) - _LOG_TWO_PI
-
-    can_append = cnt < l
-    do_update = has_match & z_ok                              # [1, T]
-    do_append = (~has_match) & can_append & z_ok
-    if key_row is not None:
-        # same-tick duplicate guard (see the key_row note above), and
-        # record this measurement's world observation + append decision
-        # for the guards of the tick's later measurements
-        do_append = do_append & (~dup)
-        wxs_ref[pl.ds(m_idx, 1), :] = wx
-        wys_ref[pl.ds(m_idx, 1), :] = wy
-        apps_ref[pl.ds(m_idx, 1), :] = do_append.astype(jnp.int32)
-
-    # single write pass per plane: the EKF update targets the matched slot,
-    # the append targets slot==cnt, and per lane at most ONE of the two fires
-    # (do_update/do_append are disjoint), so one [L, T] target mask + a [1, T]
-    # row-select of the value replaces the two where-passes per plane
-    # (7 [L, T] ops saved per measurement; stored values are bit-identical)
-    tgt = (onehot & do_update) | ((slot == cnt) & do_append)  # [L, T]
-
-    row = lambda u, a_: jnp.where(do_update, u, a_)           # [1, T] select
-    mx = jnp.where(tgt, row(new_mu_x, wx), mx)
-    my = jnp.where(tgt, row(new_mu_y, wy), my)
-    ca = jnp.where(tgt, row(new_a, default_cov), ca)
-    cb = jnp.where(tgt, row(new_b, 0.0), cb)
-    if not sym:
-        # when sym, new_b == new_c (symmetrized above) — no cc plane to write
-        cc = jnp.where(tgt, row(new_c, 0.0), cc)
-    cd = jnp.where(tgt, row(new_d, default_cov), cd)
-    new_det = new_a * new_d - new_b * new_c      # [1, T] row, cheap
-    detp = jnp.where(
-        tgt, row(new_det, default_cov * default_cov), detp
+        qx, qy = wx, wy
+    idx, has_match = K._associate(mx, my, ca, cb, cc, cd, slot < cnt, qx, qy,
+                                  config, axis=0)
+    onehot = slot == idx
+    new_mx, new_my, new_a, new_b, new_c, new_d, log_lik = K._landmark_ekf(
+        _gather(onehot, mx), _gather(onehot, my), _gather(onehot, ca),
+        _gather(onehot, cb), _gather(onehot, cc), _gather(onehot, cd),
+        px, py, yaw, dist_z, bearing_z, config,
     )
-
+    do_update = z_ok & has_match
+    do_append = z_ok & (~has_match) & (cnt < n_lm)
+    # one write per plane: per particle at most one of update/append fires
+    tgt = (onehot & do_update) | ((slot == cnt) & do_append)
+    put = lambda plane, upd, app: jnp.where(
+        tgt, jnp.where(do_update, upd, app), plane)
+    cov0 = config.default_landmark_cov
+    mx = put(mx, new_mx, wx)
+    my = put(my, new_my, wy)
+    ca = put(ca, new_a, cov0)
+    cb = put(cb, new_b, 0.0)
+    cd = put(cd, new_d, cov0)
     cnt = cnt + do_append.astype(jnp.int32)
     if weight_update:
         logw = jnp.where(do_update, logw + log_lik, logw)
-    if shadow:
-        # refresh the bf16 shadows of the slots this measurement touched
-        # (half-rate [L, T] selects; values are the f32 writes, rounded)
-        bf = jnp.bfloat16
-        brow = lambda u, a_: jnp.where(do_update, u, a_).astype(bf)
-        smx = jnp.where(tgt, brow(new_mu_x, wx), smx)
-        smy = jnp.where(tgt, brow(new_mu_y, wy), smy)
-        sca = jnp.where(tgt, brow(new_a, default_cov), sca)
-        scb = jnp.where(tgt, brow(new_b, 0.0), scb)
-        scc = jnp.where(tgt, brow(new_c, 0.0), scc)
-        scd = jnp.where(tgt, brow(new_d, default_cov), scd)
-        return (mx, my, ca, cb, cc, cd, detp, cnt, logw,
-                smx, smy, sca, scb, scc, scd)
     if sym:
-        return mx, my, ca, cb, cd, detp, cnt, logw
-    return mx, my, ca, cb, cc, cd, detp, cnt, logw
-
-
-def _fused_update_kernel(
-    # scalar-prefetch
-    z_ref,        # [M, 4] SMEM: (distance, bearing, cos(bearing), sin(bearing))
-    zvalid_ref,   # [M, 1] SMEM int32
-    mlast_ref,    # [1] SMEM int32: last valid measurement index + 1
-    # VMEM refs, packed (the cc plane is ABSENT when sym — see below):
-    #   inputs:  px, py, yaw, cy, sy, logw [1, T];
-    #            mx, my, ca, cb, [cc,] cd [L, T]; cnt [1, T] int32
-    #   outputs: logw; mx, my, ca, cb, [cc,] cd; cnt
-    *refs,
-    num_measurements: int,
-    gate: float,
-    meas_noise: float,
-    default_cov: float,
-    parity: bool,
-    assoc_bf16: bool = False,
-    assoc_shadow: bool = False,
-    sym: bool = False,
-    unroll: int = 1,
-    _skip_ekf: bool = False,
-):
-    """Layout note: particles occupy the LANE dimension (last axis) and
-    landmark slots the sublane dimension.  Per-particle scalars are [1, T]
-    rows costing ~T/128 vregs per op; in the naive [T, 1] column layout each
-    scalar op burned a full (8,128) vreg per 8 particles (127/128 lanes idle)
-    and the EKF's ~80 scalar ops dominated the kernel (~30 ms/step).  Rows +
-    sublane reductions bring the whole step to VPU-roofline territory.
-
-    Measurement-loop structure: the trip count is DYNAMIC — ``mlast_ref``
-    holds (last valid index + 1), so padded tail slots cost nothing and, for
-    the packed masks ``pad_measurements`` produces, no per-measurement branch
-    is needed at all.  A ``lax.cond`` skip was measured at ~155 us per
-    measurement per step (2.5 ms/step at M=16) even with an always-true
-    predicate; interior mask holes are handled by the cheap ``z_ok`` row
-    gating instead.
-
-    A merged det/validity plane rides in the loop carry: ``detp > 0`` means
-    "slot occupied and covariance positive-definite" (invalid slots are
-    pinned to -1), replacing the per-measurement ``slot < cnt`` mask and the
-    3-op determinant recompute with one compare; appends and EKF updates
-    refresh the affected slot from cheap [1, T] row math."""
-    n_cov = 3 if sym else 4
-    n_in = 6 + 2 + n_cov + 1          # pose rows+logw, means, covs, cnt
-    (px_ref, py_ref, yaw_ref, cy_ref, sy_ref, logw_in) = refs[:6]
-    mx_in, my_in = refs[6:8]
-    cov_in = refs[8:8 + n_cov]
-    cnt_in = refs[8 + n_cov]
-    logw_out = refs[n_in]
-    mx_out, my_out = refs[n_in + 1:n_in + 3]
-    cov_out = refs[n_in + 3:n_in + 3 + n_cov]
-    cnt_out = refs[n_in + 3 + n_cov]
-
-    l, t = mx_in.shape
-    px = px_ref[:, :]                 # [1, T]
-    py = py_ref[:, :]
-    yaw = yaw_ref[:, :]
-    cyaw = cy_ref[:, :]
-    syaw = sy_ref[:, :]
-
-    mx = mx_in[:, :]
-    my = my_in[:, :]
-    covs = tuple(r[:, :] for r in cov_in)
-    if sym:
-        ca, cb, cd = covs
-        cc = cb
-    else:
-        ca, cb, cc, cd = covs
-    cnt = cnt_in[:, :]                # [1, T] int32
-    logw = logw_in[:, :]
-
-    slot = jax.lax.broadcasted_iota(jnp.int32, (l, t), 0)
-    # det/validity plane: > 0 iff the slot is occupied AND det(cov) > 0
-    detp = jnp.where(slot < cnt, ca * cd - cb * cc, -1.0)
-
-    def _measurement_body(m, carry):
-        return _apply_measurement(
-            carry,
-            (px, py, yaw, cyaw, syaw),
-            (z_ref[m, 0], z_ref[m, 1], z_ref[m, 2], z_ref[m, 3],
-             zvalid_ref[m, 0] > 0),
-            slot=slot, gate=gate, meas_noise=meas_noise,
-            default_cov=default_cov, parity=parity, assoc_bf16=assoc_bf16,
-            skip_ekf=_skip_ekf, shadow=assoc_shadow, sym=sym,
-        )
-
-    if sym:
-        carry = (mx, my, ca, cb, cd, detp, cnt, logw)
-    else:
-        carry = (mx, my, ca, cb, cc, cd, detp, cnt, logw)
-    if assoc_shadow:
-        # bf16 shadows initialized ONCE per tile (amortized over the loop)
-        bf = jnp.bfloat16
-        carry = carry + (mx.astype(bf), my.astype(bf), ca.astype(bf),
-                         cb.astype(bf), cc.astype(bf), cd.astype(bf))
-
-    # dynamic trip count: stop after the last valid measurement (padded
-    # masks are packed-first, so this skips the tail for free).  Unrolling
-    # is MANUAL (a Python loop in the round body — lax.fori_loop's unroll=
-    # does not lower through Mosaic); the round count stays DYNAMIC
-    # (ceil(mlast/unroll)), so the padded-tail saving is kept to unroll
-    # granularity and overshoot slots are z_ok-gated no-ops.
-    mtrip = jnp.minimum(mlast_ref[0], num_measurements)
-    if unroll > 1:
-        if num_measurements % unroll:
-            raise ValueError("unroll must divide max_measurements")
-
-        def _round_body(i, carry):
-            for j in range(unroll):
-                carry = _measurement_body(i * unroll + j, carry)
-            return carry
-
-        carry = jax.lax.fori_loop(
-            0, (mtrip + unroll - 1) // unroll, _round_body, carry,
-        )
-    else:
-        carry = jax.lax.fori_loop(0, mtrip, _measurement_body, carry)
-    if sym:
-        mx, my, ca, cb, cd, detp, cnt, logw = carry[:8]
-        new_covs = (ca, cb, cd)
-    else:
-        mx, my, ca, cb, cc, cd, detp, cnt, logw = carry[:9]
-        new_covs = (ca, cb, cc, cd)
-
-    logw_out[:, :] = logw
-    mx_out[:, :] = mx
-    my_out[:, :] = my
-    for ref, val in zip(cov_out, new_covs):
-        ref[:, :] = val
-    cnt_out[:, :] = cnt
-
-
-def fused_update(
-    poses: jax.Array,        # [P, 3]
-    log_weights: jax.Array,  # [P]
-    lm_mean: jax.Array,      # [P, L, 2]
-    lm_cov: jax.Array,       # [P, L, 4]
-    lm_count: jax.Array,     # [P]
-    z: jax.Array,            # [M, 2]
-    z_valid: jax.Array,      # [M] bool
-    config: FastSLAMConfig,
-    *,
-    interpret: bool = False,
-    assoc_bf16: bool = False,
-    _skip_ekf: bool = False,
-) -> Tuple[jax.Array, jax.Array, jax.Array, jax.Array]:
-    """Fused per-tick measurement update; drop-in for the lax.scan path.
-
-    Compatibility wrapper over :func:`fused_update_planes`: transposes the
-    ``[P, L]`` blocks to the particles-on-lanes layout at the boundary and
-    back.  The twelve transposes cost ~600 MB of HBM traffic per step at
-    P=100k/L=64 — steady-state callers should carry a
-    :class:`~fastslam_tpu.core.state.PlanesState` and call the planes entry
-    point directly (see kernels.fastslam_step_planes).
-
-    Returns ``(log_weights, lm_mean, lm_cov, lm_count)``.
-    """
-    p, l = lm_mean.shape[0], lm_mean.shape[1]
-    tile = _lane_tile(p)
-    pp = _round_up(p, tile)  # padded particle count (Mosaic lane-tile rule)
-
-    pad = lambda x: jnp.pad(x, [(0, pp - p)] + [(0, 0)] * (x.ndim - 1))
-    logw, mx, my, ca, cb, cc, cd, cnt = fused_update_planes(
-        pad(poses), pad(log_weights),
-        pad(lm_mean[:, :, 0]).T, pad(lm_mean[:, :, 1]).T,
-        pad(lm_cov[:, :, 0]).T, pad(lm_cov[:, :, 1]).T,
-        pad(lm_cov[:, :, 2]).T, pad(lm_cov[:, :, 3]).T,
-        pad(lm_count), z, z_valid, config,
-        interpret=interpret, assoc_bf16=assoc_bf16, _skip_ekf=_skip_ekf,
-    )
-    if cc is None:  # production: symmetric covariance, cc == cb
-        cc = cb
-    new_mean = jnp.stack([mx.T[:p], my.T[:p]], axis=-1)
-    new_cov = jnp.stack([ca.T[:p], cb.T[:p], cc.T[:p], cd.T[:p]], axis=-1)
-    return logw[:p], new_mean, new_cov, cnt[:p]
-
-
-def fused_update_planes(
-    poses: jax.Array,        # [P, 3]
-    log_weights: jax.Array,  # [P]
-    lm_mx: jax.Array,        # [L, P]
-    lm_my: jax.Array,        # [L, P]
-    lm_ca: jax.Array,        # [L, P]
-    lm_cb: jax.Array,        # [L, P]
-    lm_cc: jax.Array,        # [L, P]
-    lm_cd: jax.Array,        # [L, P]
-    lm_count: jax.Array,     # [P] int32
-    z: jax.Array,            # [M, 2]
-    z_valid: jax.Array,      # [M] bool
-    config: FastSLAMConfig,
-    *,
-    interpret: bool = False,
-    assoc_bf16: bool = False,
-    assoc_shadow: bool = False,
-    unroll: int = 1,
-    _skip_ekf: bool = False,
-):
-    """Planes-native fused measurement update — zero layout conversions.
-
-    Landmark state arrives as six ``[L, P]`` component planes (particles on
-    the lane axis) exactly as the kernel consumes them; per-particle scalars
-    are reshaped to ``[1, P]`` rows (free).  ``P`` must be a multiple of 128
-    (see :func:`~fastslam_tpu.core.state.planes_particle_count`).
-
-    Production mode streams only FIVE planes: the symmetrized EKF keeps
-    ``cc == cb`` invariant, so ``lm_cc`` is dropped (pass ``None``; an array
-    is accepted and ignored) and the returned ``cc`` is ``None`` — matching
-    :class:`~fastslam_tpu.core.state.PlanesState`'s production contract.
-    Parity mode keeps all six planes and ``lm_cc`` must be a real array.
-
-    Returns ``(log_weights [P], mx, my, ca, cb, cc, cd [L, P], lm_count [P])``
-    with ``cc = None`` when ``not config.parity_mode``.
-    """
-    l, p = lm_mx.shape
-    m = z.shape[0]
-    if not config.parity_mode and l > 256:
-        raise ValueError("packed argmin supports at most 256 landmark slots")
-    if p < 128:
-        tile = p  # one sub-lane-width tile (Mosaic masks the padding)
-    elif p % 128:
-        raise ValueError(
-            f"planes particle count {p} must be a multiple of 128 "
-            "(see planes_particle_count; for sharded runs make the global "
-            "count a multiple of 128 * num_devices)"
-        )
-    else:
-        tile = _lane_tile(p)
-        while p % tile:
-            tile -= 128
-    grid = (p // tile,)
-    dt = lm_mx.dtype
-
-    row = lambda x: x.reshape(1, p)
-    # index maps get (grid_idx, *scalar_prefetch_refs) under
-    # PrefetchScalarGridSpec, hence the *_ catch-all
-    plane = pl.BlockSpec((l, tile), lambda i, *_: (0, i), memory_space=pltpu.VMEM)
-    rowspec = pl.BlockSpec((1, tile), lambda i, *_: (0, i), memory_space=pltpu.VMEM)
-
-    if assoc_shadow and (config.parity_mode or _skip_ekf):
-        raise ValueError("assoc_shadow is a production-mode lever (and "
-                         "pointless with _skip_ekf)")
-    if m % unroll:
-        unroll = 1  # unroll must divide the measurement capacity
-    # production keeps cc == cb (symmetrized EKF), so the cc plane is
-    # dropped from the stream and the kernel carry (shadow still carries 6)
-    sym = not config.parity_mode and not assoc_shadow
-    n_planes = 5 if sym else 6
-    if not sym and lm_cc is None:
-        lm_cc = lm_cb  # shadow on a symmetric state: cc content == cb
-    if config.parity_mode and lm_cc is lm_cb:
-        raise ValueError("parity mode needs a real (asymmetric) lm_cc plane")
-    kernel = functools.partial(
-        _fused_update_kernel,
-        num_measurements=m,
-        gate=float(config.max_landmark_distance),
-        meas_noise=float(config.measurement_noise),
-        default_cov=float(config.default_landmark_cov),
-        parity=bool(config.parity_mode),
-        assoc_bf16=assoc_bf16,
-        assoc_shadow=assoc_shadow,
-        sym=sym,
-        unroll=unroll,
-        _skip_ekf=_skip_ekf,
-    )
-
-    grid_spec = pltpu.PrefetchScalarGridSpec(
-        num_scalar_prefetch=3,
-        grid=grid,
-        in_specs=[rowspec] * 6 + [plane] * n_planes + [rowspec],
-        out_specs=[rowspec] + [plane] * n_planes + [rowspec],
-    )
-
-    out_shapes = (
-        jax.ShapeDtypeStruct((1, p), dt),                    # logw
-        *([jax.ShapeDtypeStruct((l, p), dt)] * n_planes),    # means + covs
-        jax.ShapeDtypeStruct((1, p), jnp.int32),             # cnt
-    )
-
-    # trig precomputed outside the kernel (Mosaic lowers no sin/cos/atan2):
-    # per-measurement (cos b, sin b) columns and per-particle (cos yaw, sin yaw)
-    z_aug = jnp.concatenate(
-        [z.astype(dt), jnp.cos(z[:, 1:2]).astype(dt), jnp.sin(z[:, 1:2]).astype(dt)],
-        axis=1,
-    )
-    # dynamic trip count: last valid measurement index + 1 (0 if none)
-    mlast = jnp.max(
-        jnp.where(z_valid, jnp.arange(1, m + 1, dtype=jnp.int32), 0)
-    ).reshape(1)
-    outs = pl.pallas_call(
-        kernel,
-        grid_spec=grid_spec,
-        out_shape=out_shapes,
-        compiler_params=pltpu.CompilerParams(
-            vmem_limit_bytes=100 * 1024 * 1024,
-        ),
-        interpret=interpret,
-    )(
-        z_aug,
-        z_valid.astype(jnp.int32).reshape(m, 1),
-        mlast,
-        row(poses[:, 0]), row(poses[:, 1]), row(poses[:, 2]),
-        row(jnp.cos(poses[:, 2])), row(jnp.sin(poses[:, 2])),
-        row(log_weights),
-        lm_mx, lm_my, lm_ca, lm_cb,
-        *(() if sym else (lm_cc,)), lm_cd,
-        row(lm_count),
-    )
-    if sym:
-        logw, mx, my, ca, cb, cd, cnt = outs
-        cc = None
-    else:
-        logw, mx, my, ca, cb, cc, cd, cnt = outs
-        if not config.parity_mode:
-            # production contract: no cc plane (cc == cb invariant; see
-            # PlanesState) — the shadow path's cc output is discarded too
-            cc = None
-    return (logw.reshape(p), mx, my, ca, cb, cc, cd, cnt.reshape(p))
-
-
-# ---------------------------------------------------------------------------
-# FastSLAM 2.0 measurement-informed proposal, fused in-kernel
-# ---------------------------------------------------------------------------
-
-def _accumulate_proposal(
-    acc, planes, pred_rows, prior_rows, z_scalars, *, slot, gate, meas_noise,
-    evidence=True, scale=None, return_key=False,
-):
-    """One measurement of the FastSLAM 2.0 proposal accumulation on a
-    particle tile — the in-kernel mirror of the scan body in
-    :func:`fastslam_tpu.core.kernels.fastslam2_propose` (same math, same
-    op order; association is the production packed-argmin).
-
-    acc:        (lam00 lam01 lam02 lam11 lam12 lam22, e0 e1 e2, logw_add)
-                as [1, T] rows — the pose information matrix / vector and
-                the evidence log-weight, accumulated across measurements.
-    planes:     (mx, my, ca, cb, cd, detp) read-only [L, T] planes — the
-                production covariance is symmetric, so there is no cc plane
-                (cc == cb; see :func:`_apply_measurement` ``sym``).
-    pred_rows:  (px, py, yaw, cyaw, syaw) [1, T] PREDICTED-pose rows.
-    prior_rows: (p00, p01, p11, s_r2) [1, T] motion-prior covariance rows.
-    z_scalars:  (dist_z, bearing_z, cos_b, sin_b, z_ok) SMEM scalars.
-    scale:      optional traced scalar in [0, 1] — the proposal MODE DIAL
-                (kernels.fastslam2_propose ``evidence_scale``): multiplies
-                this measurement's Lambda/eta contribution so the sampled
-                proposal interpolates continuously between the pure motion
-                prior (0, the reference's behavior) and the fully
-                measurement-informed fs2 posterior (1).  The evidence
-                log-weight is NOT scaled — the weight source semantics are
-                unchanged.
-    return_key: also return this measurement's packed argmin key row
-                ([1, T] i32) so the EKF pass can reuse the association
-                (config.fs2_reuse_association).
-    """
-    (lam00, lam01, lam02, lam11, lam12, lam22, e0a, e1a, e2a, logw_add) = acc
-    mx, my, ca, cb, cd, detp = planes
-    cc = cb  # symmetric covariance — alias, no extra plane
-    px, py, yaw, cyaw, syaw = pred_rows
-    p00, p01, p11, s_r2 = prior_rows
-    dist_z, bearing_z, cos_b, sin_b, z_ok = z_scalars
-    l = mx.shape[0]
-    dt = mx.dtype
-
-    # associate against the world-frame observation from the PREDICTED pose
-    wx = px + dist_z * (cyaw * cos_b - syaw * sin_b)   # [1, T]
-    wy = py + dist_z * (syaw * cos_b + cyaw * sin_b)
-    dx_q = mx - wx
-    dy_q = my - wy
-    d2f = dx_q * (cd * dx_q - cb * dy_q) + dy_q * (-cc * dx_q + ca * dy_q)
-    usable = detp > 0.0
-    inv_det = pl.reciprocal(jnp.where(usable, detp, 1.0), approx=True)
-    dist2 = jnp.maximum(d2f * inv_det, 0.0)
-    key = jax.lax.bitcast_convert_type(dist2, jnp.int32)
-    key = jnp.where(usable, (key & ~0xFF) | slot, _INVALID_KEY)
-    kmin = jnp.min(key, axis=0, keepdims=True)           # [1, T]
-    gate_bits = _f32_bits(gate * gate)
-    has_match = kmin <= (((gate_bits - 1) & ~0xFF) | 0xFF)
-    idx = kmin & 0xFF
-    onehot = (slot == idx) & has_match
-    oh = onehot.astype(dt)
-    use = has_match & z_ok
-
-    # gather the matched landmark (zeros when no match — gated below)
-    mu_x = jnp.sum(mx * oh, axis=0, keepdims=True)       # [1, T]
-    mu_y = jnp.sum(my * oh, axis=0, keepdims=True)
-    a = jnp.sum(ca * oh, axis=0, keepdims=True)
-    b = jnp.sum(cb * oh, axis=0, keepdims=True)
-    c = b  # cc == cb: the c gather IS the b gather (one [L, T] pass saved)
-    d = jnp.sum(cd * oh, axis=0, keepdims=True)
-
-    dx = mu_x - px
-    dy = mu_y - py
-    q = jnp.maximum(dx * dx + dy * dy, 1e-12)
-    rinv = jax.lax.rsqrt(q)
-    qinv = rinv * rinv
-    r = q * rinv
-    nu_r = dist_z - r
-    nu_b = _wrap_pi(bearing_z + yaw - _atan2(dy, dx))
-
-    # landmark-side innovation covariance S~ = Hm Sig Hm' + R
-    h00 = dx * rinv
-    h01 = dy * rinv
-    h10 = -dy * qinv
-    h11 = dx * qinv
-    u0 = h00 * a + h01 * c
-    u1 = h00 * b + h01 * d
-    v0 = h10 * a + h11 * c
-    v1 = h10 * b + h11 * d
-    s00 = u0 * h00 + u1 * h01 + meas_noise
-    s01 = u0 * h10 + u1 * h11
-    s11 = v0 * h10 + v1 * h11 + meas_noise
-    s_det = jnp.maximum(s00 * s11 - s01 * s01, 1e-18)
-    si = 1.0 / s_det
-    i00 = s11 * si
-    i01 = -s01 * si
-    i11 = s00 * si
-
-    # chi^2 innovation gate (99%, 2 dof): implausible innovations are likely
-    # mis-associations — they may down-weight the particle but must not PULL
-    # the proposal (kernels.fastslam2_propose uses the same 9.21 gate)
-    maha_gate = i00 * nu_r * nu_r + 2.0 * i01 * nu_r * nu_b + i11 * nu_b * nu_b
-    use = use & (maha_gate < 9.21)
-
-    # pose Jacobian Hx = [[-dx/r, -dy/r, 0], [dy/q, -dx/q, -1]]
-    g00, g01 = -h00, -h01
-    g10, g11_ = -h10, -h11
-
-    # Hx' S~^-1 Hx (symmetric 3x3) and Hx' S~^-1 nu  (g02 = 0, g12 = -1)
-    t00 = i00 * g00 + i01 * g10
-    t01 = i00 * g01 + i01 * g11_
-    t02 = -i01
-    t10 = i01 * g00 + i11 * g10
-    t11 = i01 * g01 + i11 * g11_
-    t12 = -i11
-
-    d00 = g00 * t00 + g10 * t10
-    d01 = g00 * t01 + g10 * t11
-    d02 = g00 * t02 + g10 * t12
-    d11 = g01 * t01 + g11_ * t11
-    d12 = g01 * t02 + g11_ * t12
-    d22 = -t12
-
-    e0 = t00 * nu_r + t10 * nu_b
-    e1 = t01 * nu_r + t11 * nu_b
-    e2 = t02 * nu_r + t12 * nu_b
-
-    usef = use.astype(dt)
-    luse = usef if scale is None else usef * scale
-    lam00 = lam00 + luse * d00
-    lam01 = lam01 + luse * d01
-    lam02 = lam02 + luse * d02
-    lam11 = lam11 + luse * d11
-    lam12 = lam12 + luse * d12
-    lam22 = lam22 + luse * d22
-    e0a = e0a + luse * e0
-    e1a = e1a + luse * e1
-    e2a = e2a + luse * e2
-
-    if evidence:
-        # evidence weight N(nu; 0, S~ + Hx P0 Hx') — motion prior projected
-        # through Hx (P0 = [[p00,p01,0],[p01,p11,0],[0,0,s_r2]]); with
-        # fs2_evidence_weights=False the EKF pass weights instead
-        q00 = g00 * (p00 * g00 + p01 * g01) + g01 * (p01 * g00 + p11 * g01)
-        q01 = g00 * (p00 * g10 + p01 * g11_) + g01 * (p01 * g10 + p11 * g11_)
-        q11 = (g10 * (p00 * g10 + p01 * g11_)
-               + g11_ * (p01 * g10 + p11 * g11_) + s_r2)
-        z00 = s00 + q00
-        z01 = s01 + q01
-        z11 = s11 + q11
-        z_det = jnp.maximum(z00 * z11 - z01 * z01, 1e-30)
-        zi = 1.0 / z_det
-        maha = (z11 * nu_r * nu_r - 2.0 * z01 * nu_r * nu_b
-                + z00 * nu_b * nu_b) * zi
-        log_ev = -0.5 * (maha + jnp.log(z_det)) - _LOG_TWO_PI
-        logw_add = jnp.where(use, logw_add + log_ev, logw_add)
-
-    out = (lam00, lam01, lam02, lam11, lam12, lam22, e0a, e1a, e2a, logw_add)
-    if return_key:
-        return out, kmin
-    return out
-
-
-def _proposal_prior_rows(cy, sy, s_t2, s_r2, fxy):
-    """Motion-prior covariance rows and the information-form initialization
-    of the pose Lambda (mirrors kernels.fastslam2_propose's prior block).
-    Returns ((p00, p01, p11, s_r2), (lam00..lam22))."""
-    p00 = cy * cy * s_t2 + sy * sy * fxy
-    p01 = cy * sy * (s_t2 - fxy)
-    p11 = sy * sy * s_t2 + cy * cy * fxy
-    det_p = p00 * p11 - p01 * p01
-    i_p = 1.0 / jnp.maximum(det_p, 1e-18)
-    zero = jnp.zeros_like(p00)
-    lam = (p11 * i_p, -p01 * i_p, zero, p00 * i_p, zero,
-           (1.0 / s_r2) * jnp.ones_like(p00))
-    return (p00, p01, p11, s_r2 * jnp.ones_like(p00)), lam
-
-
-def _solve_sample_pose(lam, eta, pred_rows, noise_rows):
-    """Sigma = Lambda^-1, mu = pred + Sigma eta, pose = mu + chol(Sigma) n —
-    all on [1, T] rows (in-kernel mirror of kernels._inv3x3_sym +
-    kernels._chol3x3_sym with the same 1e-9 jitter)."""
-    l00, l01, l02, l11, l12, l22 = lam
-    e0, e1, e2 = eta
-    px, py, yaw = pred_rows
-    n0, n1, n2 = noise_rows
-
-    co00 = l11 * l22 - l12 * l12
-    co01 = l02 * l12 - l01 * l22
-    co02 = l01 * l12 - l02 * l11
-    det = l00 * co00 + l01 * co01 + l02 * co02
-    det = jnp.where(jnp.abs(det) > 1e-18, det, 1e-18)
-    inv_det = 1.0 / det
-    s00 = co00 * inv_det
-    s01 = co01 * inv_det
-    s02 = co02 * inv_det
-    s11 = (l00 * l22 - l02 * l02) * inv_det
-    s12 = (l01 * l02 - l00 * l12) * inv_det
-    s22 = (l00 * l11 - l01 * l01) * inv_det
-
-    mu0 = px + s00 * e0 + s01 * e1 + s02 * e2
-    mu1 = py + s01 * e0 + s11 * e1 + s12 * e2
-    mu2 = yaw + s02 * e0 + s12 * e1 + s22 * e2
-
-    a = s00 + 1e-9
-    d = s11 + 1e-9
-    f = s22 + 1e-9
-    c00 = jnp.sqrt(jnp.maximum(a, 1e-18))
-    c10 = s01 / c00
-    c20 = s02 / c00
-    c11 = jnp.sqrt(jnp.maximum(d - c10 * c10, 1e-18))
-    c21 = (s12 - c20 * c10) / c11
-    c22 = jnp.sqrt(jnp.maximum(f - c20 * c20 - c21 * c21, 1e-18))
-
-    new_x = mu0 + c00 * n0
-    new_y = mu1 + c10 * n0 + c11 * n1
-    new_yaw = _wrap_pi(mu2 + c20 * n0 + c21 * n1 + c22 * n2)
-    return new_x, new_y, new_yaw
-
-
-def _fused_fs2_kernel(
-    # scalar-prefetch
-    z_ref,        # [M, 4] SMEM: (distance, bearing, cos(bearing), sin(bearing))
-    zvalid_ref,   # [M, 1] SMEM int32
-    mlast_ref,    # [1] SMEM int32
-    prior_ref,    # [4] SMEM f32: (s_t2, s_r2, fxy, dial) — traced scalars
-    # inputs (VMEM)
-    px_ref, py_ref, yaw_ref, cy_ref, sy_ref,   # [1, T] PREDICTED pose rows
-    logw_in,                                    # [1, T]
-    n0_ref, n1_ref, n2_ref,                     # [1, T] standard-normal draws
-    mx_in, my_in, ca_in, cb_in, cd_in,          # [L, T] (no cc: cc == cb)
-    cnt_in,                                     # [1, T] int32
-    # outputs
-    x_out, y_out, yaw_out, logw_out,
-    mx_out, my_out, ca_out, cb_out, cd_out, cnt_out,
-    # scratch ([M, T] i32 packed-key rows when reuse_assoc)
-    *scratch,
-    num_measurements: int,
-    gate: float,
-    meas_noise: float,
-    default_cov: float,
-    evidence_weights: bool,
-    reuse_assoc: bool = False,
-):
-    """One FastSLAM 2.0 tick on a particle tile, planes VMEM-resident:
-
-      1. accumulate the pose-posterior information (Lambda, eta) and the
-         evidence log-weight over all measurements at the PREDICTED pose
-         (association + per-measurement Gauss-Newton terms);
-      2. solve + Cholesky-sample the new pose in-kernel (the sampled yaw's
-         cos/sin come from :func:`_sin_cos` — Mosaic lowers no trig);
-      3. run the landmark-EKF measurement loop at the SAMPLED pose with
-         ``weight_update=False`` (evidence already carries the weight).
-
-    The [L, T] planes stream from HBM ONCE for both measurement loops —
-    the XLA path (kernels.fastslam2_propose + the lax.scan EKF) re-reads
-    them 2M times per tick.  Production mode only.
-    """
-    l, t = mx_in.shape
-    px = px_ref[:, :]
-    py = py_ref[:, :]
-    yaw = yaw_ref[:, :]
-    cyaw = cy_ref[:, :]
-    syaw = sy_ref[:, :]
-    logw = logw_in[:, :]
-
-    mx = mx_in[:, :]
-    my = my_in[:, :]
-    ca = ca_in[:, :]
-    cb = cb_in[:, :]
-    cd = cd_in[:, :]
-    cnt = cnt_in[:, :]
-
-    slot = jax.lax.broadcasted_iota(jnp.int32, (l, t), 0)
-    detp = jnp.where(slot < cnt, ca * cd - cb * cb, -1.0)
-
-    prior_rows, lam = _proposal_prior_rows(
-        cyaw, syaw, prior_ref[0], prior_ref[1], prior_ref[2]
-    )
-    zero = jnp.zeros_like(px)
-    acc = lam + (zero, zero, zero, zero)
-    mtrip = jnp.minimum(mlast_ref[0], num_measurements)
-
-    keys_ref = scratch[0] if reuse_assoc else None
-
-    if reuse_assoc:
-        # per-measurement packed argmin keys, stored for the EKF pass
-        # (config.fs2_reuse_association) in a VMEM scratch ref
-        def _accum_body(m, acc):
-            acc, kmin = _accumulate_proposal(
-                acc, (mx, my, ca, cb, cd, detp),
-                (px, py, yaw, cyaw, syaw), prior_rows,
-                (z_ref[m, 0], z_ref[m, 1], z_ref[m, 2], z_ref[m, 3],
-                 zvalid_ref[m, 0] > 0),
-                slot=slot, gate=gate, meas_noise=meas_noise,
-                evidence=evidence_weights, scale=prior_ref[3],
-                return_key=True,
-            )
-            keys_ref[pl.ds(m, 1), :] = kmin
-            return acc
-    else:
-        def _accum_body(m, acc):
-            return _accumulate_proposal(
-                acc, (mx, my, ca, cb, cd, detp),
-                (px, py, yaw, cyaw, syaw), prior_rows,
-                (z_ref[m, 0], z_ref[m, 1], z_ref[m, 2], z_ref[m, 3],
-                 zvalid_ref[m, 0] > 0),
-                slot=slot, gate=gate, meas_noise=meas_noise,
-                evidence=evidence_weights, scale=prior_ref[3],
-            )
-
-    acc = jax.lax.fori_loop(0, mtrip, _accum_body, acc)
-    lam = acc[:6]
-    eta = acc[6:9]
-    if evidence_weights:
-        logw = logw + acc[9]
-
-    new_x, new_y, new_yaw = _solve_sample_pose(
-        lam, eta, (px, py, yaw),
-        (n0_ref[:, :], n1_ref[:, :], n2_ref[:, :]),
-    )
-    new_sy, new_cy = _sin_cos(new_yaw)
-
-    def _measurement_body(m, carry):
-        return _apply_measurement(
-            carry,
-            (new_x, new_y, new_yaw, new_cy, new_sy),
-            (z_ref[m, 0], z_ref[m, 1], z_ref[m, 2], z_ref[m, 3],
-             zvalid_ref[m, 0] > 0),
-            slot=slot, gate=gate, meas_noise=meas_noise,
-            default_cov=default_cov, parity=False, assoc_bf16=False,
-            skip_ekf=False, weight_update=not evidence_weights, sym=True,
-            key_row=(keys_ref[pl.ds(m, 1), :] if reuse_assoc else None),
-            reuse_scratch=((scratch[1], scratch[2], scratch[3], m)
-                           if reuse_assoc else None),
-        )
-
-    mx, my, ca, cb, cd, detp, cnt, logw = jax.lax.fori_loop(
-        0, mtrip, _measurement_body,
-        (mx, my, ca, cb, cd, detp, cnt, logw),
-    )
-
-    x_out[:, :] = new_x
-    y_out[:, :] = new_y
-    yaw_out[:, :] = new_yaw
-    logw_out[:, :] = logw
-    mx_out[:, :] = mx
-    my_out[:, :] = my
-    ca_out[:, :] = ca
-    cb_out[:, :] = cb
-    cd_out[:, :] = cd
-    cnt_out[:, :] = cnt
-
-
-def fused_fs2_planes(
-    pred_poses: jax.Array,   # [P, 3] PREDICTED (mean-motion) poses
-    log_weights: jax.Array,  # [P]
-    lm_mx: jax.Array,        # [L, P]
-    lm_my: jax.Array,
-    lm_ca: jax.Array,
-    lm_cb: jax.Array,
-    lm_cc: jax.Array,
-    lm_cd: jax.Array,
-    lm_count: jax.Array,     # [P] int32
-    z: jax.Array,            # [M, 2]
-    z_valid: jax.Array,      # [M] bool
-    noise: jax.Array,        # [P, 3] standard-normal pose-sample draws
-    s_t2: jax.Array,         # scalar: prior translation variance (+ xy floor)
-    s_r2: jax.Array,         # scalar: prior rotation variance (+ theta floor)
-    fxy: jax.Array,          # scalar: squared xy floor (lateral prior var)
-    config: FastSLAMConfig,
-    *,
-    evidence_scale: jax.Array | None = None,
-    interpret: bool = False,
-):
-    """Planes-native fused FastSLAM 2.0 tick: measurement-informed proposal +
-    evidence weighting + landmark EKF in ONE kernel invocation.
-
-    The caller supplies the deterministic mean-motion ``pred_poses`` (exact
-    XLA trig) and the traced prior scalars; everything pose-posterior happens
-    in-kernel.  ``evidence_scale`` is the traced proposal mode dial in
-    [0, 1] (see :func:`_accumulate_proposal`); ``None`` means 1 (full fs2).
-    Returns ``(poses [P, 3], log_weights [P], mx, my, ca, cb,
-    cc, cd [L, P], lm_count [P])``.
-    """
-    l, p = lm_mx.shape
-    m = z.shape[0]
-    if l > 256:
-        raise ValueError("packed argmin supports at most 256 landmark slots")
-    if p < 128:
-        tile = p
-    elif p % 128:
-        raise ValueError(
-            f"planes particle count {p} must be a multiple of 128"
-        )
-    else:
-        tile = _lane_tile(p)
-        while p % tile:
-            tile -= 128
-    grid = (p // tile,)
-    dt = lm_mx.dtype
-
-    row = lambda x: x.reshape(1, p)
-    plane = pl.BlockSpec((l, tile), lambda i, *_: (0, i), memory_space=pltpu.VMEM)
-    rowspec = pl.BlockSpec((1, tile), lambda i, *_: (0, i), memory_space=pltpu.VMEM)
-
-    kernel = functools.partial(
-        _fused_fs2_kernel,
-        num_measurements=m,
-        gate=float(config.max_landmark_distance),
-        meas_noise=float(config.measurement_noise),
-        default_cov=float(config.default_landmark_cov),
-        evidence_weights=bool(config.fs2_evidence_weights),
-        reuse_assoc=bool(config.fs2_reuse_association),
-    )
-
-    grid_spec = pltpu.PrefetchScalarGridSpec(
-        num_scalar_prefetch=4,
-        grid=grid,
-        in_specs=[rowspec] * 9 + [plane] * 5 + [rowspec],
-        out_specs=[rowspec] * 4 + [plane] * 5 + [rowspec],
-        # keys + (wx, wy, appended) rows for the association-reuse path
-        scratch_shapes=([pltpu.VMEM((m, tile), jnp.int32),
-                         pltpu.VMEM((m, tile), dt),
-                         pltpu.VMEM((m, tile), dt),
-                         pltpu.VMEM((m, tile), jnp.int32)]
-                        if config.fs2_reuse_association else []),
-    )
-
-    out_shapes = (
-        *([jax.ShapeDtypeStruct((1, p), dt)] * 4),  # x y yaw logw
-        *([jax.ShapeDtypeStruct((l, p), dt)] * 5),  # mx my ca cb cd
-        jax.ShapeDtypeStruct((1, p), jnp.int32),    # cnt
-    )
-
-    z_aug = jnp.concatenate(
-        [z.astype(dt), jnp.cos(z[:, 1:2]).astype(dt),
-         jnp.sin(z[:, 1:2]).astype(dt)],
-        axis=1,
-    )
-    mlast = jnp.max(
-        jnp.where(z_valid, jnp.arange(1, m + 1, dtype=jnp.int32), 0)
-    ).reshape(1)
-    dial = (jnp.float32(1.0) if evidence_scale is None
-            else jnp.asarray(evidence_scale, jnp.float32))
-    prior = jnp.stack([s_t2, s_r2, fxy, dial]).astype(jnp.float32)
-
-    outs = pl.pallas_call(
-        kernel,
-        grid_spec=grid_spec,
-        out_shape=out_shapes,
-        compiler_params=pltpu.CompilerParams(
-            vmem_limit_bytes=100 * 1024 * 1024,
-        ),
-        interpret=interpret,
-    )(
-        z_aug,
-        z_valid.astype(jnp.int32).reshape(m, 1),
-        mlast,
-        prior,
-        row(pred_poses[:, 0]), row(pred_poses[:, 1]), row(pred_poses[:, 2]),
-        row(jnp.cos(pred_poses[:, 2])), row(jnp.sin(pred_poses[:, 2])),
-        row(log_weights),
-        row(noise[:, 0]), row(noise[:, 1]), row(noise[:, 2]),
-        lm_mx, lm_my, lm_ca, lm_cb, lm_cd,
-        row(lm_count),
-    )
-    x, y, yaw, logw = (o.reshape(p) for o in outs[:4])
-    mx, my, ca, cb, cd = outs[4:9]
-    cc = None  # symmetric production covariance — no cc plane (cc == cb)
-    cnt = outs[9].reshape(p)
-    poses = jnp.stack([x, y, yaw], axis=-1)
-    return poses, logw, mx, my, ca, cb, cc, cd, cnt
-
-
-# ---------------------------------------------------------------------------
-# multi-tick (chunked) fused update: C ticks per kernel invocation
-# ---------------------------------------------------------------------------
-
-def _fused_multi_kernel(
-    # scalar-prefetch
-    z_ref,        # [C*M, 4] SMEM: (distance, bearing, cos(bearing), sin(bearing))
-    zvalid_ref,   # [C*M, 1] SMEM int32
-    mlast_ref,    # [C] SMEM int32: per-tick last valid measurement index + 1
-    # VMEM refs, packed (the cc plane is ABSENT when sym):
-    #   inputs:  px, py, yaw, cy, sy, logw [1, T] initial pose rows;
-    #            nrot, ntrans, cnr, snr [Cp, T] per-tick motion rows;
-    #            mx, my, ca, cb, [cc,] cd [L, T]; cnt [1, T] int32
-    #   outputs: tx, ty, tyaw, tlogw [Cp, T] per-tick trajectories;
-    #            mx, my, ca, cb, [cc,] cd final planes; cnt
-    *refs,
-    num_ticks: int,
-    num_measurements: int,
-    gate: float,
-    meas_noise: float,
-    default_cov: float,
-    parity: bool,
-    assoc_bf16: bool = False,
-    assoc_shadow: bool = False,
-    sym: bool = False,
-    unroll: int = 1,
-):
-    """C full filter ticks (propagate + measurement loop) on one particle
-    tile with the landmark planes resident in VMEM throughout.
-
-    The single-tick kernel streams the five [L, P] landmark planes from HBM
-    and back every tick (~300 MB at P=100k, L=64) — the step's dominant
-    fixed cost.  Running C ticks per invocation amortizes that stream C-fold;
-    the only per-tick HBM traffic is four [1, P] motion rows in and four
-    [1, P] trajectory rows out (~3 MB/tick).
-
-    In-kernel propagation needs cos/sin of the evolving yaw, which Mosaic
-    cannot lower — so the per-tick noisy rotation's exact cos/sin are
-    computed OUTSIDE (XLA, [C, P] arrays) and the carried (cos yaw, sin yaw)
-    rows advance by the angle-addition identities, renormalized each tick
-    (rsqrt) so the unit circle drift stays at rounding level.  This makes
-    chunked propagation float-equal to the per-tick path up to ~1 ulp per
-    tick, not bit-identical — chunked execution is a production-mode feature
-    (parity mode keeps the exact per-tick reference semantics).
-
-    Weight normalization, Neff, and resampling happen OUTSIDE at chunk
-    boundaries only: log-weights accumulate stably without per-tick
-    normalization (it only shifts all particles equally), and the per-tick
-    argmax pose estimate is normalization-invariant, so the only semantic
-    difference from the per-tick path is the resampling cadence (every C
-    ticks instead of every tick when Neff dips).
-    """
-    n_cov = 3 if sym else 4
-    n_in = 6 + 4 + 2 + n_cov + 1
-    (px_ref, py_ref, yaw_ref, cy_ref, sy_ref, logw_in) = refs[:6]
-    (nrot_ref, ntrans_ref, cnr_ref, snr_ref) = refs[6:10]
-    mx_in, my_in = refs[10:12]
-    cov_in = refs[12:12 + n_cov]
-    cnt_in = refs[12 + n_cov]
-    (tx_out, ty_out, tyaw_out, tlogw_out) = refs[n_in:n_in + 4]
-    mx_out, my_out = refs[n_in + 4:n_in + 6]
-    cov_out = refs[n_in + 6:n_in + 6 + n_cov]
-    cnt_out = refs[n_in + 6 + n_cov]
-
-    l, t = mx_in.shape
-    px = px_ref[:, :]
-    py = py_ref[:, :]
-    yaw = yaw_ref[:, :]
-    cyaw = cy_ref[:, :]
-    syaw = sy_ref[:, :]
-    logw = logw_in[:, :]
-
-    mx = mx_in[:, :]
-    my = my_in[:, :]
-    covs = tuple(r[:, :] for r in cov_in)
-    if sym:
-        ca, cb, cd = covs
-        cc = cb
-    else:
-        ca, cb, cc, cd = covs
-    cnt = cnt_in[:, :]
-
-    slot = jax.lax.broadcasted_iota(jnp.int32, (l, t), 0)
-    detp = jnp.where(slot < cnt, ca * cd - cb * cc, -1.0)
-
-    def tick_body(k, carry):
-        (px, py, yaw, cyaw, syaw), mcarry = carry[:5], carry[5:]
-
-        # ---- propagate (reference fast_slam_2.py:69-87 semantics) ----
-        nrot = nrot_ref[pl.ds(k, 1), :]          # [1, T]
-        ntrans = ntrans_ref[pl.ds(k, 1), :]
-        cnr = cnr_ref[pl.ds(k, 1), :]            # cos(nrot), exact (from XLA)
-        snr = snr_ref[pl.ds(k, 1), :]
-        yaw = _wrap_pi(yaw + nrot)
-        cyaw, syaw = cyaw * cnr - syaw * snr, syaw * cnr + cyaw * snr
-        # renormalize the carried unit vector (angle-addition rounding drift)
-        inv_n = jax.lax.rsqrt(cyaw * cyaw + syaw * syaw)
-        cyaw = cyaw * inv_n
-        syaw = syaw * inv_n
-        px = px + ntrans * cyaw                  # translation along NEW heading
-        py = py + ntrans * syaw
-
-        # ---- measurement loop (dynamic trip count for this tick) ----
-        def _measurement_body(m, mcarry):
-            zi = k * num_measurements + m
-            return _apply_measurement(
-                mcarry,
-                (px, py, yaw, cyaw, syaw),
-                (z_ref[zi, 0], z_ref[zi, 1], z_ref[zi, 2], z_ref[zi, 3],
-                 zvalid_ref[zi, 0] > 0),
-                slot=slot, gate=gate, meas_noise=meas_noise,
-                default_cov=default_cov, parity=parity,
-                assoc_bf16=assoc_bf16, skip_ekf=False, shadow=assoc_shadow,
-                sym=sym,
-            )
-
-        mtrip = jnp.minimum(mlast_ref[k], num_measurements)
-        if unroll > 1:
-            # manual unroll; dynamic ROUND count keeps the padded-tail
-            # saving to unroll granularity (overshoot = z_ok no-ops)
-            if num_measurements % unroll:
-                raise ValueError("unroll must divide max_measurements")
-
-            def _round_body(i, mcarry):
-                for j in range(unroll):
-                    mcarry = _measurement_body(i * unroll + j, mcarry)
-                return mcarry
-
-            mcarry = jax.lax.fori_loop(
-                0, (mtrip + unroll - 1) // unroll, _round_body, mcarry,
-            )
-        else:
-            mcarry = jax.lax.fori_loop(0, mtrip, _measurement_body, mcarry)
-        logw = mcarry[7 if sym else 8]
-
-        # ---- per-tick trajectory rows ----
-        tx_out[pl.ds(k, 1), :] = px
-        ty_out[pl.ds(k, 1), :] = py
-        tyaw_out[pl.ds(k, 1), :] = yaw
-        tlogw_out[pl.ds(k, 1), :] = logw
-
-        return (px, py, yaw, cyaw, syaw) + tuple(mcarry)
-
-    if sym:
-        mcarry0 = (mx, my, ca, cb, cd, detp, cnt, logw)
-    else:
-        mcarry0 = (mx, my, ca, cb, cc, cd, detp, cnt, logw)
-    if assoc_shadow:
-        bf = jnp.bfloat16
-        mcarry0 = mcarry0 + (mx.astype(bf), my.astype(bf), ca.astype(bf),
-                             cb.astype(bf), cc.astype(bf), cd.astype(bf))
-    carry = jax.lax.fori_loop(
-        0, num_ticks, tick_body,
-        (px, py, yaw, cyaw, syaw) + mcarry0,
-    )
-    if sym:
-        mx, my, ca, cb, cd, detp, cnt = carry[5:12]
-        new_covs = (ca, cb, cd)
-    else:
-        mx, my, ca, cb, cc, cd, detp, cnt = carry[5:13]
-        new_covs = (ca, cb, cc, cd)
-
-    mx_out[:, :] = mx
-    my_out[:, :] = my
-    for ref, val in zip(cov_out, new_covs):
-        ref[:, :] = val
-    cnt_out[:, :] = cnt
-
-
-def fused_update_planes_multi(
-    poses: jax.Array,        # [P, 3]
-    log_weights: jax.Array,  # [P]
-    lm_mx: jax.Array,        # [L, P]
-    lm_my: jax.Array,
-    lm_ca: jax.Array,
-    lm_cb: jax.Array,
-    lm_cc: jax.Array,
-    lm_cd: jax.Array,
-    lm_count: jax.Array,     # [P] int32
-    z: jax.Array,            # [C, M, 2]
-    z_valid: jax.Array,      # [C, M] bool
-    noisy_rot: jax.Array,    # [C, P] per-tick per-particle rotation increment
-    noisy_trans: jax.Array,  # [C, P] per-tick per-particle translation
-    config: FastSLAMConfig,
-    *,
-    interpret: bool = False,
-    assoc_bf16: bool = False,
-    assoc_shadow: bool = False,
-    unroll: int = 1,
-):
-    """C chunked filter ticks with VMEM-resident landmark planes.
-
-    ``noisy_rot``/``noisy_trans`` are the fully-formed per-tick motion
-    increments (command + pre-scaled noise, with the reference's
-    rotation-XOR-translation structure already applied — see
-    :func:`~fastslam_tpu.core.kernels.fastslam_steps_planes_chunked`).
-
-    Returns ``(tx, ty, tyaw, tlogw  [C, P] per-tick trajectories,
-    mx, my, ca, cb, cc, cd [L, P], lm_count [P])``.
-    """
-    l, p = lm_mx.shape
-    c, m = z.shape[0], z.shape[1]
-    if not config.parity_mode and l > 256:
-        raise ValueError("packed argmin supports at most 256 landmark slots")
-    if p < 128:
-        tile = p
-    elif p % 128:
-        raise ValueError(
-            f"planes particle count {p} must be a multiple of 128"
-        )
-    else:
-        tile = _lane_tile(p)
-        while p % tile:
-            tile -= 128
-    grid = (p // tile,)
-    dt = lm_mx.dtype
-
-    # per-tick [C, P] blocks tile the sublane axis in multiples of 8
-    cp = _round_up(c, 8)
-    pad_c = lambda x: jnp.pad(x, ((0, cp - c), (0, 0))) if cp != c else x
-
-    row = lambda x: x.reshape(1, p)
-    plane = pl.BlockSpec((l, tile), lambda i, *_: (0, i), memory_space=pltpu.VMEM)
-    rowspec = pl.BlockSpec((1, tile), lambda i, *_: (0, i), memory_space=pltpu.VMEM)
-    tickspec = pl.BlockSpec((cp, tile), lambda i, *_: (0, i), memory_space=pltpu.VMEM)
-
-    if assoc_shadow and config.parity_mode:
-        raise ValueError("assoc_shadow is a production-mode lever")
-    if m % unroll:
-        unroll = 1  # unroll must divide the measurement capacity
-    # production keeps cc == cb (symmetrized EKF) — stream five planes
-    sym = not config.parity_mode and not assoc_shadow
-    n_planes = 5 if sym else 6
-    if not sym and lm_cc is None:
-        lm_cc = lm_cb  # shadow on a symmetric state: cc content == cb
-    if config.parity_mode and lm_cc is lm_cb:
-        raise ValueError("parity mode needs a real (asymmetric) lm_cc plane")
-    kernel = functools.partial(
-        _fused_multi_kernel,
-        num_ticks=c,
-        num_measurements=m,
-        gate=float(config.max_landmark_distance),
-        meas_noise=float(config.measurement_noise),
-        default_cov=float(config.default_landmark_cov),
-        parity=bool(config.parity_mode),
-        assoc_bf16=assoc_bf16,
-        assoc_shadow=assoc_shadow,
-        sym=sym,
-        unroll=unroll,
-    )
-
-    grid_spec = pltpu.PrefetchScalarGridSpec(
-        num_scalar_prefetch=3,
-        grid=grid,
-        in_specs=[rowspec] * 6 + [tickspec] * 4 + [plane] * n_planes
-        + [rowspec],
-        out_specs=[tickspec] * 4 + [plane] * n_planes + [rowspec],
-    )
-
-    out_shapes = (
-        *([jax.ShapeDtypeStruct((cp, p), dt)] * 4),         # tx ty tyaw tlogw
-        *([jax.ShapeDtypeStruct((l, p), dt)] * n_planes),   # means + covs
-        jax.ShapeDtypeStruct((1, p), jnp.int32),            # cnt
-    )
-
-    zf = z.reshape(c * m, 2)
-    z_aug = jnp.concatenate(
-        [zf.astype(dt), jnp.cos(zf[:, 1:2]).astype(dt),
-         jnp.sin(zf[:, 1:2]).astype(dt)],
-        axis=1,
-    )
-    # per-tick dynamic trip counts: last valid measurement index + 1
-    mlast = jnp.max(
-        jnp.where(z_valid, jnp.arange(1, m + 1, dtype=jnp.int32)[None, :], 0),
-        axis=1,
-    )
-
-    outs = pl.pallas_call(
-        kernel,
-        grid_spec=grid_spec,
-        out_shape=out_shapes,
-        compiler_params=pltpu.CompilerParams(
-            vmem_limit_bytes=100 * 1024 * 1024,
-        ),
-        interpret=interpret,
-    )(
-        z_aug,
-        z_valid.astype(jnp.int32).reshape(c * m, 1),
-        mlast,
-        row(poses[:, 0]), row(poses[:, 1]), row(poses[:, 2]),
-        row(jnp.cos(poses[:, 2])), row(jnp.sin(poses[:, 2])),
-        row(log_weights),
-        pad_c(noisy_rot.astype(dt)), pad_c(noisy_trans.astype(dt)),
-        pad_c(jnp.cos(noisy_rot).astype(dt)), pad_c(jnp.sin(noisy_rot).astype(dt)),
-        lm_mx, lm_my, lm_ca, lm_cb,
-        *(() if sym else (lm_cc,)), lm_cd,
-        row(lm_count),
-    )
-    tx, ty, tyaw, tlogw = (o[:c] for o in outs[:4])
-    if sym:
-        mx, my, ca, cb, cd, cnt = outs[4:]
-        cc = None
-    else:
-        mx, my, ca, cb, cc, cd, cnt = outs[4:]
-        if not config.parity_mode:
-            cc = None  # production contract: no cc plane (cc == cb)
-    return tx, ty, tyaw, tlogw, mx, my, ca, cb, cc, cd, cnt.reshape(p)
-
-
-# ---------------------------------------------------------------------------
-# multi-tick chunked FastSLAM 2.0: C proposal+EKF ticks per invocation
-# ---------------------------------------------------------------------------
-
-def _fused_fs2_multi_kernel(
-    # scalar-prefetch
-    z_ref,        # [C*M, 4] SMEM
-    zvalid_ref,   # [C*M, 1] SMEM int32
-    mlast_ref,    # [C] SMEM int32
-    motion_ref,   # [C, 4] SMEM f32: (rot_eff, trans_eff, cos_rot, sin_rot)
-    prior_ref,    # [C, 4] SMEM f32: (s_t2, s_r2, fxy, dial)
-    # inputs (VMEM)
-    px_ref, py_ref, yaw_ref, cy_ref, sy_ref,    # [1, T] initial pose rows
-    logw_in,                                     # [1, T]
-    n0_ref, n1_ref, n2_ref,                      # [Cp, T] per-tick noise rows
-    mx_in, my_in, ca_in, cb_in, cd_in,           # [L, T] (no cc: cc == cb)
-    cnt_in,                                      # [1, T] int32
-    # outputs
-    tx_out, ty_out, tyaw_out, tlogw_out,         # [Cp, T]
-    mx_out, my_out, ca_out, cb_out, cd_out,
-    cnt_out,
-    # scratch ([M, T] i32 packed-key rows when reuse_assoc)
-    *scratch,
-    num_ticks: int,
-    num_measurements: int,
-    gate: float,
-    meas_noise: float,
-    default_cov: float,
-    evidence_weights: bool,
-    unroll: int = 1,
-    reuse_assoc: bool = False,
-):
-    """C FastSLAM 2.0 ticks on one particle tile, landmark planes
-    VMEM-resident throughout (the fs2 analog of :func:`_fused_multi_kernel`).
-
-    Per tick: deterministic mean-motion prediction (the per-tick rotation is
-    a SHARED scalar, so its exact cos/sin ride in SMEM and the carried
-    (cos yaw, sin yaw) advance by angle addition), proposal accumulation
-    over the tick's measurements at the predicted pose, in-kernel
-    solve + Cholesky sample (fresh cos/sin from :func:`_sin_cos` each tick —
-    no drift accumulation), then the landmark-EKF loop at the sampled pose
-    with ``weight_update=False``.  Weight normalization / Neff / resampling
-    happen OUTSIDE at chunk boundaries, as for the motion-model chunked
-    kernel.
-    """
-    l, t = mx_in.shape
-    px = px_ref[:, :]
-    py = py_ref[:, :]
-    yaw = yaw_ref[:, :]
-    cyaw = cy_ref[:, :]
-    syaw = sy_ref[:, :]
-    logw = logw_in[:, :]
-
-    mx = mx_in[:, :]
-    my = my_in[:, :]
-    ca = ca_in[:, :]
-    cb = cb_in[:, :]
-    cd = cd_in[:, :]
-    cnt = cnt_in[:, :]
-
-    slot = jax.lax.broadcasted_iota(jnp.int32, (l, t), 0)
-    detp = jnp.where(slot < cnt, ca * cd - cb * cb, -1.0)
-
-    def tick_body(k, carry):
-        px, py, yaw, cyaw, syaw, mx, my, ca, cb, cd, detp, cnt, logw = carry
-
-        # ---- deterministic mean-motion prediction ----
-        rot = motion_ref[k, 0]
-        trn = motion_ref[k, 1]
-        cr = motion_ref[k, 2]
-        sr = motion_ref[k, 3]
-        yaw_p = _wrap_pi(yaw + rot)
-        cy_p = cyaw * cr - syaw * sr
-        sy_p = syaw * cr + cyaw * sr
-        px_p = px + trn * cy_p
-        py_p = py + trn * sy_p
-
-        # ---- proposal accumulation at the predicted pose ----
-        prior_rows, lam = _proposal_prior_rows(
-            cy_p, sy_p, prior_ref[k, 0], prior_ref[k, 1], prior_ref[k, 2]
-        )
-        zero = jnp.zeros_like(px_p)
-        acc = lam + (zero, zero, zero, zero)
-        mtrip = jnp.minimum(mlast_ref[k], num_measurements)
-
-        if reuse_assoc:
-            # per-measurement packed argmin keys for this tick, stored in
-            # the VMEM scratch ref so the EKF pass reuses the association
-            # (config.fs2_reuse_association)
-            def _accum_body(m, a):
-                zi = k * num_measurements + m
-                a, kmin = _accumulate_proposal(
-                    a, (mx, my, ca, cb, cd, detp),
-                    (px_p, py_p, yaw_p, cy_p, sy_p), prior_rows,
-                    (z_ref[zi, 0], z_ref[zi, 1], z_ref[zi, 2],
-                     z_ref[zi, 3], zvalid_ref[zi, 0] > 0),
-                    slot=slot, gate=gate, meas_noise=meas_noise,
-                    evidence=evidence_weights, scale=prior_ref[k, 3],
-                    return_key=True,
-                )
-                scratch[0][pl.ds(m, 1), :] = kmin
-                return a
-        else:
-            def _accum_body(m, acc):
-                zi = k * num_measurements + m
-                return _accumulate_proposal(
-                    acc, (mx, my, ca, cb, cd, detp),
-                    (px_p, py_p, yaw_p, cy_p, sy_p), prior_rows,
-                    (z_ref[zi, 0], z_ref[zi, 1], z_ref[zi, 2],
-                     z_ref[zi, 3], zvalid_ref[zi, 0] > 0),
-                    slot=slot, gate=gate, meas_noise=meas_noise,
-                    evidence=evidence_weights, scale=prior_ref[k, 3],
+        return (mx, my, ca, cb, cd), cnt, logw
+    return (mx, my, ca, cb, put(cc, new_c, 0.0), cd), cnt, logw
+
+
+def _filter_kernel(*refs, n_ticks, n_meas, n_lm, n_particles, block, fs2,
+                   n_planes, config):
+    it = iter(refs)
+    z_ref, zv_ref, mlast_ref = next(it), next(it), next(it)
+    scal_ref = next(it) if fs2 else None
+    x_ref, y_ref, yaw_ref, logw_ref, cnt_ref = (next(it) for _ in range(5))
+    row_refs = [next(it) for _ in range(3 if fs2 else 2)]
+    plane_in = [next(it) for _ in range(n_planes)]
+    traj_out = [next(it) for _ in range(4)]
+    plane_out = [next(it) for _ in range(n_planes)]
+    cnt_out = next(it)
+
+    lm_block = plane_in[0].shape[0]
+    col = (pl.program_id(0) * block
+           + jax.lax.broadcasted_iota(jnp.int32, (1, block), 1))
+    colmask = col < n_particles                               # [1, T]
+    slot = jax.lax.broadcasted_iota(jnp.int32, (lm_block, block), 0)
+    planemask = colmask & (slot < n_lm)                       # [Lb, T]
+
+    load_row = lambda ref: plgpu.load(ref, mask=colmask, other=0.0)
+    tick_row = lambda ref, k: plgpu.load(ref.at[pl.ds(k, 1), :],
+                                         mask=colmask, other=0.0)
+    planes = tuple(plgpu.load(r, mask=planemask, other=0.0) for r in plane_in)
+    pose = (load_row(x_ref), load_row(y_ref), load_row(yaw_ref))
+    logw = load_row(logw_ref)
+    cnt = plgpu.load(cnt_ref, mask=colmask, other=0)
+
+    def measurement_loop(k, planes, cnt, logw, pose, weight_update):
+        def body(m, carry):
+            planes, cnt, logw = carry
+            zi = k * n_meas + m
+            z = (z_ref[zi, 0], z_ref[zi, 1], zv_ref[zi] > 0)
+            return _measurement(planes, cnt, logw, pose, z, slot, n_lm,
+                                config, weight_update)
+
+        return jax.lax.fori_loop(0, mlast_ref[k], body, (planes, cnt, logw))
+
+    def tick(k, carry):
+        planes, cnt, logw, (x, y, yaw) = carry
+        if fs2:
+            rot, trans = scal_ref[k, 0], scal_ref[k, 1]
+            s_t2, s_r2, fxy, dial = (scal_ref[k, 2], scal_ref[k, 3],
+                                     scal_ref[k, 4], scal_ref[k, 5])
+            yaw_p = K.wrap_angle(yaw + rot)
+            px = x + trans * jnp.cos(yaw_p)
+            py = y + trans * jnp.sin(yaw_p)
+            prior, lam = K._proposal_prior(yaw_p, s_t2, s_r2, fxy)
+            mx, my, ca, cb, cd = planes   # fs2 is production: cc == cb
+            cc = cb
+
+            def accumulate(m, acc):
+                zi = k * n_meas + m
+                dist_z, bearing_z = z_ref[zi, 0], z_ref[zi, 1]
+                wx = px + dist_z * jnp.cos(yaw_p + bearing_z)
+                wy = py + dist_z * jnp.sin(yaw_p + bearing_z)
+                idx, has_match = K._associate(mx, my, ca, cb, cc, cd,
+                                              slot < cnt, wx, wy, config,
+                                              axis=0)
+                onehot = slot == idx
+                return K._proposal_step(
+                    acc, _gather(onehot, mx), _gather(onehot, my),
+                    _gather(onehot, ca), _gather(onehot, cb),
+                    _gather(onehot, cc), _gather(onehot, cd),
+                    (zv_ref[zi] > 0) & has_match, px, py, yaw_p, dist_z,
+                    bearing_z, prior, s_r2, dial, config,
                 )
 
-        # manual unroll with dynamic ROUND count, exactly as the motion
-        # multi kernel does it (overshoot ticks are z_ok no-ops — for the
-        # proposal accumulation `use` is False so Lambda/eta are untouched)
-        if unroll > 1:
-            if num_measurements % unroll:
-                raise ValueError("unroll must divide max_measurements")
-
-            def _accum_round(i, acc):
-                for j in range(unroll):
-                    acc = _accum_body(i * unroll + j, acc)
-                return acc
-
-            acc = jax.lax.fori_loop(
-                0, (mtrip + unroll - 1) // unroll, _accum_round, acc)
+            zero = jnp.zeros_like(px)
+            lam, e0, e1, e2, log_ev = jax.lax.fori_loop(
+                0, mlast_ref[k], accumulate, (lam, zero, zero, zero, zero))
+            if config.fs2_evidence_weights:
+                logw = logw + log_ev
+            pose = K._sample_pose(lam, e0, e1, e2, px, py, yaw_p,
+                                  *(tick_row(r, k) for r in row_refs))
+            weight_update = not config.fs2_evidence_weights
         else:
-            acc = jax.lax.fori_loop(0, mtrip, _accum_body, acc)
-        if evidence_weights:
-            logw = logw + acc[9]
+            nrot, ntrans = (tick_row(r, k) for r in row_refs)
+            yaw = K.wrap_angle(yaw + nrot)
+            pose = (x + ntrans * jnp.cos(yaw), y + ntrans * jnp.sin(yaw), yaw)
+            weight_update = True
+        planes, cnt, logw = measurement_loop(k, planes, cnt, logw, pose,
+                                             weight_update)
+        for ref, val in zip(traj_out, (*pose, logw)):
+            plgpu.store(ref.at[pl.ds(k, 1), :], val, mask=colmask)
+        return planes, cnt, logw, pose
 
-        px, py, yaw = _solve_sample_pose(
-            acc[:6], acc[6:9], (px_p, py_p, yaw_p),
-            (n0_ref[pl.ds(k, 1), :], n1_ref[pl.ds(k, 1), :],
-             n2_ref[pl.ds(k, 1), :]),
-        )
-        syaw, cyaw = _sin_cos(yaw)
-
-        # ---- landmark EKF at the sampled pose (no weight multiply) ----
-        def _measurement_body(m, mcarry):
-            zi = k * num_measurements + m
-            return _apply_measurement(
-                mcarry,
-                (px, py, yaw, cyaw, syaw),
-                (z_ref[zi, 0], z_ref[zi, 1], z_ref[zi, 2], z_ref[zi, 3],
-                 zvalid_ref[zi, 0] > 0),
-                slot=slot, gate=gate, meas_noise=meas_noise,
-                default_cov=default_cov, parity=False, assoc_bf16=False,
-                skip_ekf=False, weight_update=not evidence_weights, sym=True,
-                key_row=(scratch[0][pl.ds(m, 1), :] if reuse_assoc
-                         else None),
-                reuse_scratch=((scratch[1], scratch[2], scratch[3], m)
-                               if reuse_assoc else None),
-            )
-
-        mcarry = (mx, my, ca, cb, cd, detp, cnt, logw)
-        if unroll > 1:
-            def _meas_round(i, mcarry):
-                for j in range(unroll):
-                    mcarry = _measurement_body(i * unroll + j, mcarry)
-                return mcarry
-
-            mcarry = jax.lax.fori_loop(
-                0, (mtrip + unroll - 1) // unroll, _meas_round, mcarry)
-        else:
-            mcarry = jax.lax.fori_loop(0, mtrip, _measurement_body, mcarry)
-        mx, my, ca, cb, cd, detp, cnt, logw = mcarry
-
-        tx_out[pl.ds(k, 1), :] = px
-        ty_out[pl.ds(k, 1), :] = py
-        tyaw_out[pl.ds(k, 1), :] = yaw
-        tlogw_out[pl.ds(k, 1), :] = logw
-
-        return px, py, yaw, cyaw, syaw, mx, my, ca, cb, cd, detp, cnt, logw
-
-    (px, py, yaw, cyaw, syaw, mx, my, ca, cb, cd, detp, cnt, logw) = (
-        jax.lax.fori_loop(
-            0, num_ticks, tick_body,
-            (px, py, yaw, cyaw, syaw, mx, my, ca, cb, cd, detp, cnt, logw),
-        )
-    )
-
-    mx_out[:, :] = mx
-    my_out[:, :] = my
-    ca_out[:, :] = ca
-    cb_out[:, :] = cb
-    cd_out[:, :] = cd
-    cnt_out[:, :] = cnt
+    planes, cnt, logw, _ = jax.lax.fori_loop(
+        0, n_ticks, tick, (planes, cnt, logw, pose))
+    for ref, val in zip(plane_out, planes):
+        plgpu.store(ref, val, mask=planemask)
+    plgpu.store(cnt_out, cnt, mask=colmask)
 
 
-def fused_fs2_planes_multi(
-    poses: jax.Array,        # [P, 3]
-    log_weights: jax.Array,  # [P]
-    lm_mx: jax.Array,        # [L, P]
-    lm_my: jax.Array,
-    lm_ca: jax.Array,
-    lm_cb: jax.Array,
-    lm_cc: jax.Array,
-    lm_cd: jax.Array,
-    lm_count: jax.Array,     # [P] int32
-    z: jax.Array,            # [C, M, 2]
-    z_valid: jax.Array,      # [C, M] bool
-    noise: jax.Array,        # [C, 3, P] standard-normal pose-sample draws
-    rot_eff: jax.Array,      # [C] per-tick mean rotation (0 on trans ticks)
-    trans_eff: jax.Array,    # [C] per-tick mean translation (0 on rot ticks)
-    s_t2: jax.Array,         # [C] prior translation variance (+ xy floor)
-    s_r2: jax.Array,         # [C] prior rotation variance (+ theta floor)
-    fxy: jax.Array,          # scalar or [C]: squared xy floor
+def filter_ticks(
+    poses: jax.Array,          # [P, 3]
+    log_weights: jax.Array,    # [P]
+    planes: Tuple,             # (mx, my, ca, cb, cc | None, cd), each [L, P]
+    lm_count: jax.Array,       # [P] int32
+    z: jax.Array,              # [C, M, 2] (distance, bearing)
+    z_valid: jax.Array,        # [C, M] bool
+    tick_rows: Tuple,          # per-tick [C, P] rows, see below
+    tick_scalars,              # [C, 6] (fs2) or None (motion)
     config: FastSLAMConfig,
     *,
-    evidence_scale: jax.Array | None = None,  # scalar or [C]: mode dial
     interpret: bool = False,
-    unroll: int = 2,
+    block: int | None = None,
+    num_warps: int = NUM_WARPS,
 ):
-    """C chunked FastSLAM 2.0 ticks with VMEM-resident landmark planes.
+    """C filter ticks (sampling + measurement update) in one kernel launch.
 
-    ``evidence_scale`` is the per-tick proposal mode dial in [0, 1] (see
-    :func:`_accumulate_proposal`); ``None`` means 1 (full fs2).
-    Returns ``(tx, ty, tyaw, tlogw [C, P], mx, my, ca, cb, cc, cd [L, P],
-    lm_count [P])`` — same contract as :func:`fused_update_planes_multi`.
+    Motion proposal (``tick_scalars is None``): ``tick_rows = (noisy_rot,
+    noisy_trans)``, the per-particle increments with the reference's
+    rotation-XOR-translation structure already applied.  FastSLAM 2.0
+    (production only): ``tick_rows`` are the three standard-normal
+    pose-sample draws and ``tick_scalars`` the per-tick
+    ``(rot_eff, trans_eff, s_t2, s_r2, fxy, dial)`` of
+    :func:`kernels.fs2_prior_scalars` plus the mode dial.
+
+    Production mode carries no ``cc`` plane (``planes[4] is None``: the
+    symmetrized EKF keeps cc == cb); parity mode carries all six.  P and L
+    need not be powers of two: the kernel masks the particle tail and the
+    slot rows above L.  The particle tile (``block``, default
+    ``BLOCK[proposal]``) and ``num_warps`` are pure scheduling choices:
+    results are bit-identical at any tile.  ``interpret=True`` runs
+    the kernel on the CPU; any other backend than a GPU refuses it.
+
+    Returns ``((tx, ty, tyaw, tlogw) [C, P] per-tick rows, planes, count)``
+    with ``planes`` in the input's form.
     """
-    l, p = lm_mx.shape
+    if not interpret and jax.default_backend() != "gpu":
+        raise RuntimeError(
+            "the fused filter kernel needs an NVIDIA GPU (JAX backend "
+            f"'{jax.default_backend()}'); pass interpret=True "
+            "(config.pallas_interpret) to run it on the CPU")
+    fs2 = tick_scalars is not None
+    if fs2 and config.parity_mode:
+        raise ValueError("the fastslam2 proposal is production-mode only")
+    sym = planes[4] is None
+    if sym == config.parity_mode:
+        raise ValueError("parity mode carries a cc plane; production does not")
+    l, p = planes[0].shape
     c, m = z.shape[0], z.shape[1]
-    if l > 256:
-        raise ValueError("packed argmin supports at most 256 landmark slots")
-    if p < 128:
-        tile = p
-    elif p % 128:
-        raise ValueError(
-            f"planes particle count {p} must be a multiple of 128"
-        )
-    else:
-        tile = _lane_tile(p)
-        while p % tile:
-            tile -= 128
-    grid = (p // tile,)
-    dt = lm_mx.dtype
-
-    cp = _round_up(c, 8)
-    pad_c = lambda x: jnp.pad(x, ((0, cp - c), (0, 0))) if cp != c else x
+    dt = planes[0].dtype
+    t = particle_block(p, block or BLOCK["fastslam2" if fs2 else "motion"])
+    lb = _pow2(l)
+    kept = [x for x in planes if x is not None]
 
     row = lambda x: x.reshape(1, p)
-    plane = pl.BlockSpec((l, tile), lambda i, *_: (0, i), memory_space=pltpu.VMEM)
-    rowspec = pl.BlockSpec((1, tile), lambda i, *_: (0, i), memory_space=pltpu.VMEM)
-    tickspec = pl.BlockSpec((cp, tile), lambda i, *_: (0, i), memory_space=pltpu.VMEM)
+    full = lambda shape: pl.BlockSpec(shape, lambda i: (0,) * len(shape))
+    rowspec = pl.BlockSpec((1, t), lambda i: (0, i))
+    tickspec = pl.BlockSpec((c, t), lambda i: (0, i))
+    planespec = pl.BlockSpec((lb, t), lambda i: (0, i))
 
-    if m % unroll:
-        unroll = 1  # unroll must divide the measurement capacity
+    zf = z.reshape(c * m, 2).astype(dt)
+    zv = z_valid.reshape(c * m).astype(jnp.int32)
+    # per-tick trip count: last valid measurement + 1 (padding is packed last)
+    mlast = jnp.max(jnp.where(z_valid, jnp.arange(1, m + 1, dtype=jnp.int32),
+                              0), axis=1).astype(jnp.int32)
+    scalars = () if tick_scalars is None else (tick_scalars.astype(dt),)
+
+    in_specs = ([full((c * m, 2)), full((c * m,)), full((c,))]
+                + [full((c, 6))] * len(scalars)
+                + [rowspec] * 5 + [tickspec] * len(tick_rows)
+                + [planespec] * len(kept))
+    out_shape = ([jax.ShapeDtypeStruct((c, p), dt)] * 4
+                 + [jax.ShapeDtypeStruct((l, p), dt)] * len(kept)
+                 + [jax.ShapeDtypeStruct((1, p), jnp.int32)])
+    out_specs = [tickspec] * 4 + [planespec] * len(kept) + [rowspec]
+
     kernel = functools.partial(
-        _fused_fs2_multi_kernel,
-        num_ticks=c,
-        num_measurements=m,
-        gate=float(config.max_landmark_distance),
-        meas_noise=float(config.measurement_noise),
-        default_cov=float(config.default_landmark_cov),
-        evidence_weights=bool(config.fs2_evidence_weights),
-        unroll=unroll,
-        reuse_assoc=bool(config.fs2_reuse_association),
+        _filter_kernel, n_ticks=c, n_meas=m, n_lm=l, n_particles=p, block=t,
+        fs2=fs2, n_planes=len(kept), config=config,
     )
-
-    out_shapes = (
-        *([jax.ShapeDtypeStruct((cp, p), dt)] * 4),   # tx ty tyaw tlogw
-        *([jax.ShapeDtypeStruct((l, p), dt)] * 5),    # mx my ca cb cd
-        jax.ShapeDtypeStruct((1, p), jnp.int32),
-    )
-
-    zf = z.reshape(c * m, 2)
-    z_aug = jnp.concatenate(
-        [zf.astype(dt), jnp.cos(zf[:, 1:2]).astype(dt),
-         jnp.sin(zf[:, 1:2]).astype(dt)],
-        axis=1,
-    )
-    mlast = jnp.max(
-        jnp.where(z_valid, jnp.arange(1, m + 1, dtype=jnp.int32)[None, :], 0),
-        axis=1,
-    )
-    motion = jnp.stack(
-        [rot_eff, trans_eff, jnp.cos(rot_eff), jnp.sin(rot_eff)], axis=1
-    ).astype(jnp.float32)
-    dial = (jnp.ones((c,), jnp.float32) if evidence_scale is None
-            else jnp.broadcast_to(
-                jnp.asarray(evidence_scale, jnp.float32), (c,)))
-    prior = jnp.stack(
-        [s_t2, s_r2, jnp.broadcast_to(fxy, (c,)), dial], axis=1
-    ).astype(jnp.float32)
-
-    # per-tick noise: three [Cp, T] component blocks (x, y, theta draws)
-    noise = noise.astype(dt)
-    n0 = pad_c(noise[:, 0, :])
-    n1 = pad_c(noise[:, 1, :])
-    n2 = pad_c(noise[:, 2, :])
-    grid_spec = pltpu.PrefetchScalarGridSpec(
-        num_scalar_prefetch=5,
-        grid=grid,
-        in_specs=[rowspec] * 6 + [tickspec] * 3 + [plane] * 5 + [rowspec],
-        out_specs=[tickspec] * 4 + [plane] * 5 + [rowspec],
-        # keys + (wx, wy, appended) rows for the association-reuse path
-        scratch_shapes=([pltpu.VMEM((m, tile), jnp.int32),
-                         pltpu.VMEM((m, tile), dt),
-                         pltpu.VMEM((m, tile), dt),
-                         pltpu.VMEM((m, tile), jnp.int32)]
-                        if config.fs2_reuse_association else []),
-    )
-
     outs = pl.pallas_call(
         kernel,
-        grid_spec=grid_spec,
-        out_shape=out_shapes,
-        compiler_params=pltpu.CompilerParams(
-            vmem_limit_bytes=100 * 1024 * 1024,
-        ),
+        grid=(pl.cdiv(p, t),),
+        in_specs=in_specs,
+        out_specs=out_specs,
+        out_shape=out_shape,
+        backend="triton",
+        compiler_params=plgpu.CompilerParams(num_warps=num_warps),
         interpret=interpret,
-    )(
-        z_aug,
-        z_valid.astype(jnp.int32).reshape(c * m, 1),
-        mlast,
-        motion,
-        prior,
-        row(poses[:, 0]), row(poses[:, 1]), row(poses[:, 2]),
-        row(jnp.cos(poses[:, 2])), row(jnp.sin(poses[:, 2])),
-        row(log_weights),
-        n0, n1, n2,
-        lm_mx, lm_my, lm_ca, lm_cb, lm_cd,
-        row(lm_count),
-    )
-    tx, ty, tyaw, tlogw = (o[:c] for o in outs[:4])
-    mx, my, ca, cb, cd, cnt = outs[4:]
-    cc = None  # symmetric production covariance — no cc plane (cc == cb)
-    return tx, ty, tyaw, tlogw, mx, my, ca, cb, cc, cd, cnt.reshape(p)
-
-
-# ---------------------------------------------------------------------------
-# tiled ICP nearest-neighbour correspondence
-# ---------------------------------------------------------------------------
-
-def _nn_kernel(src_ref, tgt_ref, tvalid_ref, dist_ref, idx_ref):
-    """For a tile of source points, brute-force NN over the full target cloud
-    (resident in VMEM), masked by target validity."""
-    sx = src_ref[:, 0:1]                        # [T, 1]
-    sy = src_ref[:, 1:2]
-    txp = tgt_ref[:, 0]                         # [Mt]
-    typ = tgt_ref[:, 1]
-    tval = tvalid_ref[:, 0] > 0                 # [Mt]
-
-    dx = sx - txp[None, :]                      # [T, Mt]
-    dy = sy - typ[None, :]
-    d2 = dx * dx + dy * dy
-    d2 = jnp.where(tval[None, :], d2, jnp.inf)
-    best = jnp.min(d2, axis=1, keepdims=True)   # [T, 1]
-    mt = d2.shape[1]
-    lane = jax.lax.broadcasted_iota(jnp.int32, d2.shape, 1)
-    idx = jnp.min(jnp.where(d2 == best, lane, mt), axis=1, keepdims=True)
-    dist_ref[:, :] = jnp.sqrt(best)
-    idx_ref[:, :] = idx
-
-
-def icp_correspondences(
-    source: jax.Array, target: jax.Array, target_valid: jax.Array,
-    *, interpret: bool = False,
-) -> Tuple[jax.Array, jax.Array]:
-    """Tiled NN correspondence: for each source point the closest valid
-    target point.  Returns (dist [N], idx [N])."""
-    n = source.shape[0]
-    mt = target.shape[0]
-    # source tiles on the sublane axis (multiple of 8); pad and slice back
-    tile = min(256, _round_up(n, 8))
-    np_ = _round_up(n, tile)
-    grid = (np_ // tile,)
-    src = jnp.pad(source, ((0, np_ - n), (0, 0)), constant_values=1e30)
-
-    dist, idx = pl.pallas_call(
-        _nn_kernel,
-        grid=grid,
-        in_specs=[
-            pl.BlockSpec((tile, 2), lambda i: (i, 0), memory_space=pltpu.VMEM),
-            pl.BlockSpec((mt, 2), lambda i: (0, 0), memory_space=pltpu.VMEM),
-            pl.BlockSpec((mt, 1), lambda i: (0, 0), memory_space=pltpu.VMEM),
-        ],
-        out_specs=[
-            pl.BlockSpec((tile, 1), lambda i: (i, 0), memory_space=pltpu.VMEM),
-            pl.BlockSpec((tile, 1), lambda i: (i, 0), memory_space=pltpu.VMEM),
-        ],
-        out_shape=(
-            jax.ShapeDtypeStruct((np_, 1), source.dtype),
-            jax.ShapeDtypeStruct((np_, 1), jnp.int32),
-        ),
-        interpret=interpret,
-    )(src, target, target_valid.astype(jnp.int32).reshape(mt, 1))
-    return dist.reshape(np_)[:n], idx.reshape(np_)[:n]
+        name="fastslam_filter_ticks",
+    )(zf, zv, mlast, *scalars,
+      row(poses[:, 0]), row(poses[:, 1]), row(poses[:, 2]), row(log_weights),
+      row(lm_count.astype(jnp.int32)),
+      *(r.astype(dt) for r in tick_rows), *kept)
+    traj = tuple(outs[:4])
+    new = list(outs[4:4 + len(kept)])
+    if sym:
+        new.insert(4, None)
+    return traj, tuple(new), outs[-1].reshape(p)

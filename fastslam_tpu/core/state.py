@@ -83,21 +83,15 @@ def init_state(config: FastSLAMConfig, rng: jax.Array | int = 0) -> FilterState:
 
 
 class PlanesState(NamedTuple):
-    """Filter state in the Pallas-native *planes* layout.
+    """Filter state in the fused kernel's *planes* layout.
 
-    The fused measurement-update kernel wants each landmark component as a
-    ``[L, P]`` plane — particles on the lane (minor) axis, landmark slots on
-    the sublane axis — so the VPU math is dense and per-particle scalars ride
-    as ``[1, P]`` rows.  :class:`FilterState` stores ``[P, L, k]`` blocks,
-    which forces twelve ``[P, L] <-> [L, P]`` transposes around the kernel
-    every step (~600 MB of extra HBM traffic at P=100k, L=64).  Keeping the
-    state natively in planes between steps eliminates those transposes; the
-    remaining per-``[P]`` ops (weights, Neff, resampling gather, pose
-    estimate) are layout-indifferent.
-
-    The particle count is padded up to a multiple of the kernel lane tile at
-    construction (:func:`planes_particle_count`); the padded entries are
-    *real* particles (same init), so no masking is needed anywhere.
+    The fused filter kernel (``core/pallas_kernels.py``) wants each landmark
+    component as an ``[L, P]`` plane — particles on the minor axis, so a
+    particle tile's loads are contiguous — and per-particle scalars as
+    ``[P]`` rows.  :class:`FilterState` stores ``[P, L, k]`` blocks; keeping
+    the state natively in planes between steps avoids a layout conversion
+    around every kernel launch.  The remaining per-``[P]`` ops (weights,
+    Neff, resampling gather, pose estimate) are layout-indifferent.
 
     ``lm_cc`` is ``None`` on the PRODUCTION path (``parity_mode=False``): the
     production EKF symmetrizes every covariance write and appends set
@@ -129,76 +123,51 @@ class PlanesState(NamedTuple):
         return self.lm_mx.shape[0]
 
 
-def planes_particle_count(num_particles: int) -> int:
-    """Particle count actually used by the planes engine: rounded up to the
-    Pallas lane-tile multiple so the kernel grid divides evenly with no
-    per-step padding."""
-    from fastslam_tpu.core.pallas_kernels import _lane_tile, _round_up
-
-    return _round_up(num_particles, _lane_tile(num_particles))
-
-
 def to_planes(state: FilterState,
               config: FastSLAMConfig | None = None) -> PlanesState:
-    """[P, L, k] blocks -> [L, P] planes (pads P up to the lane tile).
+    """[P, L, k] blocks -> [L, P] planes.
 
     With a production ``config`` (``parity_mode=False``) the redundant
     ``lm_cc`` plane is dropped (``None`` — see :class:`PlanesState`); the
     block state's symmetrized covariance guarantees ``cov[..., 2] ==
     cov[..., 1]``.  Without a config (or in parity mode) all six planes are
-    kept, which any step accepts (the production kernels simply ignore the
-    extra plane on input and return ``None`` for it).
+    kept.
     """
-    p = state.num_particles
-    pp = planes_particle_count(p)
-    padn = pp - p
     sym = config is not None and not config.parity_mode
-
-    def pad_p(x):
-        return jnp.pad(x, [(0, padn)] + [(0, 0)] * (x.ndim - 1)) if padn else x
-
-    # padded entries are live particles: weight ~0 so they never dominate
-    logw = state.log_weights
-    if padn:
-        logw = jnp.concatenate(
-            [logw, jnp.full((padn,), -80.0, dtype=logw.dtype)]
-        )
     return PlanesState(
-        poses=pad_p(state.poses),
-        log_weights=logw,
-        lm_mx=pad_p(state.lm_mean[:, :, 0]).T,
-        lm_my=pad_p(state.lm_mean[:, :, 1]).T,
-        lm_ca=pad_p(state.lm_cov[:, :, 0]).T,
-        lm_cb=pad_p(state.lm_cov[:, :, 1]).T,
-        lm_cc=None if sym else pad_p(state.lm_cov[:, :, 2]).T,
-        lm_cd=pad_p(state.lm_cov[:, :, 3]).T,
-        lm_count=pad_p(state.lm_count),
+        poses=state.poses,
+        log_weights=state.log_weights,
+        lm_mx=state.lm_mean[:, :, 0].T,
+        lm_my=state.lm_mean[:, :, 1].T,
+        lm_ca=state.lm_cov[:, :, 0].T,
+        lm_cb=state.lm_cov[:, :, 1].T,
+        lm_cc=None if sym else state.lm_cov[:, :, 2].T,
+        lm_cd=state.lm_cov[:, :, 3].T,
+        lm_count=state.lm_count,
         rng=state.rng,
     )
 
 
-def from_planes(state: PlanesState, num_particles: int | None = None) -> FilterState:
-    """[L, P] planes -> [P, L, k] blocks (slices back to ``num_particles``)."""
-    p = num_particles or state.num_particles
+def from_planes(state: PlanesState) -> FilterState:
+    """[L, P] planes -> [P, L, k] blocks."""
     cc = state.lm_cc if state.lm_cc is not None else state.lm_cb
     return FilterState(
-        poses=state.poses[:p],
-        log_weights=state.log_weights[:p],
-        lm_mean=jnp.stack([state.lm_mx.T[:p], state.lm_my.T[:p]], axis=-1),
+        poses=state.poses,
+        log_weights=state.log_weights,
+        lm_mean=jnp.stack([state.lm_mx.T, state.lm_my.T], axis=-1),
         lm_cov=jnp.stack(
-            [state.lm_ca.T[:p], state.lm_cb.T[:p],
-             cc.T[:p], state.lm_cd.T[:p]], axis=-1,
+            [state.lm_ca.T, state.lm_cb.T, cc.T, state.lm_cd.T], axis=-1,
         ),
-        lm_count=state.lm_count[:p],
+        lm_count=state.lm_count,
         rng=state.rng,
     )
 
 
 def init_planes_state(config: FastSLAMConfig, rng: jax.Array | int = 0) -> PlanesState:
-    """Fresh planes-layout state (particle count rounded up to the lane tile)."""
+    """Fresh planes-layout state."""
     if isinstance(rng, int):
         rng = jax.random.key(rng)
-    p = planes_particle_count(config.num_particles)
+    p = config.num_particles
     l = config.max_landmarks
     dt = jnp.dtype(config.dtype)
     # distinct buffers (a shared zeros array would alias, breaking

@@ -97,15 +97,17 @@ def dbscan_clusters(
 
 def _centroids(points: jax.Array, valid: jax.Array, labels: jax.Array) -> Clusters:
     n = points.shape[0]
-    safe = jnp.where(valid, labels, n - 1)
-    ones = valid.astype(points.dtype)
-    count = jnp.zeros((n,), points.dtype).at[safe].add(ones)
-    sx = jnp.zeros((n,), points.dtype).at[safe].add(points[:, 0] * ones)
-    sy = jnp.zeros((n,), points.dtype).at[safe].add(points[:, 1] * ones)
-    denom = jnp.maximum(count, 1.0)
-    cx = (sx / denom)[safe]
-    cy = (sy / denom)[safe]
     idx = jnp.arange(n, dtype=jnp.int32)
+    safe = jnp.where(valid, labels, n - 1)
+    # member[c, i]: point i is in the cluster rooted at c.  Masked row sums,
+    # not a scatter-add: a GPU scatter-add adds colliding updates with
+    # atomics in no fixed order, so the centroids (and every measurement
+    # downstream) would change in their last bits from run to run.
+    member = valid[None, :] & (safe[None, :] == idx[:, None])      # [N, N]
+    total = lambda v: jnp.sum(jnp.where(member, v[None, :], 0.0), axis=1)
+    denom = jnp.maximum(jnp.sum(member, axis=1), 1).astype(points.dtype)
+    cx = (total(points[:, 0]) / denom)[safe]
+    cy = (total(points[:, 1]) / denom)[safe]
     is_rep = valid & (labels == idx)
     return Clusters(
         centroid=jnp.stack([cx, cy], axis=-1),

@@ -4,7 +4,7 @@ The reference rasterizes the scan into a dynamically-sized uint8 image and
 calls ``cv2.HoughLines`` (``fast_slam_2/algorithms/hough_transformation.py:
 14-41``), then intersects detected lines pairwise with a 45-degree angle gate
 (``:76-119``) and maps the hits back to metric space (``:122-145``).  An
-OpenCV image pipeline is a poor TPU fit; here the same behaviour is dense
+OpenCV image pipeline cannot be jitted; here the same behaviour is dense
 array math with static shapes:
 
   1. points are scaled/offset into the same pixel space the reference uses
@@ -133,17 +133,17 @@ def hough_lines(points: jax.Array, valid: jax.Array,
     rho_idx = jnp.clip(rho_idx, 0, r_bins - 1)
     w = weight[:, None] * in_extent.astype(jnp.float32)       # [N*D, T]
     if r_bins % 64 == 0:
-        # MXU histogram (round 5, measured 6.2x): the vote scatter-add
-        # (~420k updates at ~7 ns each = 3.4 ms, the single largest
-        # frontend cost) becomes a batched matmul by factoring the rho
-        # one-hot into hi/lo 64-way one-hots:
+        # histogram as a matmul: the vote scatter-add (~420k updates per
+        # scan) becomes a batched matmul by factoring the rho one-hot into
+        # hi/lo 64-way one-hots:
         #   acc[t, 64*h + l] = sum_p w[p,t] * [hi==h] * [lo==l]
         # i.e. per theta a [64, N*D] @ [N*D, 64] product.  EXACT integer
         # counts: the one-hot entries and the dedup/extent weights are
         # all 0/1 (exactly representable in bf16), products are 0/1, and
-        # the MXU accumulates in f32 (exact integers far beyond the
+        # the product accumulates in f32 (exact integers far beyond the
         # maximum possible count N*D).  Bit-identical to the scatter
-        # (pinned by the frontend parity tests).
+        # branch below, which it replaces when r_bins is a multiple of 64;
+        # which of the two is faster on the GPU is not measured.
         hi = rho_idx >> 6
         lo = rho_idx & 63
         i64 = jnp.arange(64, dtype=jnp.int32)
@@ -170,10 +170,9 @@ def hough_lines(points: jax.Array, valid: jax.Array,
     is_line = (acc >= thr) & (acc > left) & (acc >= right) & (acc > up) & (acc >= down)
     score = jnp.where(is_line, acc, -1.0)
     k = config.max_hough_lines
-    # hierarchical top-k (round 5, measured): a flat top_k over the
-    # T*RHO_BINS accumulator costs 1.1 ms on TPU; per-theta-row top-k
-    # (k candidates per row) followed by a stable re-sort costs 0.18 ms
-    # and is EXACT by construction — the global top-k is always contained
+    # hierarchical top-k: per-theta-row top-k (k candidates per row)
+    # followed by a stable re-sort instead of a flat top_k over the
+    # T*RHO_BINS accumulator; EXACT by construction — the global top-k is always contained
     # in the per-row top-ks, and a stable argsort on -score over the
     # row-major candidate list reproduces lax.top_k's deterministic
     # (value desc, index asc) tie order: candidate order is (row asc,

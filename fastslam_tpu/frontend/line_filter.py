@@ -13,6 +13,7 @@ from __future__ import annotations
 
 import math
 
+import jax
 import jax.numpy as jnp
 import numpy as np
 
@@ -43,4 +44,7 @@ def line_filter(points: jnp.ndarray, config: FastSLAMConfig) -> jnp.ndarray:
     n = points.shape[0]
     idx = jnp.arange(n)[:, None] + jnp.arange(kernel.shape[0])[None, :]
     gathered = padded[idx]                                        # [N, K, 2]
-    return jnp.einsum("nkc,k->nc", gathered, k)
+    # full float32 precision: a GPU would otherwise run the contraction as
+    # TF32 and round metre-scale coordinates to mm
+    return jnp.einsum("nkc,k->nc", gathered, k,
+                      precision=jax.lax.Precision.HIGHEST)

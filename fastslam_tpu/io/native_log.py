@@ -4,9 +4,10 @@ byte-identical NumPy fallback.
 The ``FSLG1`` format (see native/logcodec.cpp for the layout) gives O(1)
 random access into fixed-size tick records — the data-loader path for
 high-rate replay and multi-epoch benchmarking, where parsing npz/JSON per
-run would dominate.  The shared library is built on demand (``make -C
-native``); if no toolchain is available the NumPy codec reads/writes the
-identical bytes.
+run would dominate.  The shared library is not checked in: it is built from
+native/logcodec.cpp on first use (``make -C native``, under a file lock so
+concurrent processes build it once); if no toolchain is available the NumPy
+codec reads/writes the identical bytes.
 """
 
 from __future__ import annotations
@@ -37,10 +38,15 @@ def _load_library() -> Optional[ctypes.CDLL]:
     _lib_tried = True
     try:
         if not os.path.exists(_LIB_PATH) and os.path.isdir(_NATIVE_DIR):
-            subprocess.run(
-                ["make", "-C", _NATIVE_DIR, "-s"],
-                check=True, capture_output=True, timeout=120,
-            )
+            import fcntl
+
+            with open(os.path.join(_NATIVE_DIR, ".build.lock"), "w") as lock:
+                fcntl.flock(lock, fcntl.LOCK_EX)
+                if not os.path.exists(_LIB_PATH):
+                    subprocess.run(
+                        ["make", "-C", _NATIVE_DIR, "-s"],
+                        check=True, capture_output=True, timeout=120,
+                    )
         lib = ctypes.CDLL(_LIB_PATH)
     except (OSError, subprocess.SubprocessError):
         return None

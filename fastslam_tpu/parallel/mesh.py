@@ -5,7 +5,7 @@ The reference's only parallelism is a GIL-bound thread pool over 20 particles
 array axis over a ``jax.sharding.Mesh``: every per-particle kernel shards
 trivially, and the global reductions the reference does serially (weight
 normalization ``:161-175``, Neff ``:212-223``, argmax pose ``:201-210``,
-resampling ``:177-199``) compile to XLA collectives over ICI/DCN via GSPMD —
+resampling ``:177-199``) compile to XLA collectives (NCCL on GPUs) via GSPMD —
 we annotate shardings and let the compiler insert psum/all-gather where
 needed (the scaling-book recipe).
 """
@@ -69,8 +69,8 @@ def planes_state_sharding(mesh: Mesh, config: FastSLAMConfig) -> PlanesState:
 
     Landmark planes are ``[L, P]`` — particles on the LAST axis — so they
     shard on axis 1; per-particle arrays shard on axis 0.  The planes step
-    keeps every particle's full landmark block local (the fused kernel needs
-    all L slots of its particles in VMEM), so the mesh must be 1-D over the
+    keeps every particle's full landmark block local (the fused kernel keeps
+    all L slots of its particles on chip), so the mesh must be 1-D over the
     particle axis.
     """
     pax = config.particle_axis

@@ -3,8 +3,8 @@
 The reference's only IPC is a JSON file over a Docker bind mount
 (``serializer.py:15-17``; SURVEY.md §2.3).  Here multi-host runs use JAX's
 native runtime: ``jax.distributed.initialize`` brings up the coordination
-service, the global mesh spans every host's chips (collectives ride ICI
-within a slice, DCN across hosts), and host-side consumers (telemetry,
+service, the global mesh spans every host's devices (collectives ride
+NVLink within a host, the network across hosts), and host-side consumers (telemetry,
 serialization, eval) pull replicated scalars or process-local shards only.
 
 On a single host everything degrades to no-ops, so the same entry point runs

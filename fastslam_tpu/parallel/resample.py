@@ -34,8 +34,7 @@ from fastslam_tpu.core.state import FilterState
 
 
 def shard_ancestor_window(logw, u0, *, axis: str, num_shards: int):
-    """The ancestor-window math shared by the ppermute halo resampler and
-    the Pallas ring resampler (``parallel.ring_resample``): all-gather the
+    """The halo resampler's ancestor-window math: all-gather the
     weights (4 B/particle), compute this shard's GLOBAL systematic ancestor
     indices, and decide — with a psum so every shard agrees — whether every
     shard's window fits in [own block ± one neighbor block].
@@ -58,8 +57,7 @@ def shard_ancestor_window(logw, u0, *, axis: str, num_shards: int):
     # shard's output positions [my_start, my_start + p_local) — the SAME
     # staircase helper as the single-device resampler, so the bit-match
     # invariant between the distributed and single-device paths holds by
-    # construction (kernels.grid_staircase_indices; searchsorted here was
-    # 12.5 ms at P=100k on TPU)
+    # construction (kernels.grid_staircase_indices)
     from fastslam_tpu.core.kernels import grid_staircase_indices
 
     idx_all = grid_staircase_indices(cum, u0, p_global)          # [P]
@@ -75,35 +73,6 @@ def shard_ancestor_window(logw, u0, *, axis: str, num_shards: int):
     use_halo = jax.lax.psum((~my_in_window).astype(jnp.int32), axis) == 0
     safe_local = jnp.clip(local_idx, 0, 3 * p_local - 1)
     return idx, safe_local, use_halo
-
-
-def pack_particle_block(poses, logw, lm_mean, lm_cov, lm_count):
-    """State columns -> one ``[P_local, D]`` f32 block
-    (poses | logw | lm_mean | lm_cov | lm_count), D = 3 + 1 + 2L + 4L + 1.
-    ``lm_count <= L`` is exactly representable in f32.  Shared with the
-    Pallas ring resampler, whose RDMA moves one contiguous block."""
-    p = poses.shape[0]
-    return jnp.concatenate([
-        poses,
-        logw[:, None],
-        lm_mean.reshape(p, -1),
-        lm_cov.reshape(p, -1),
-        lm_count.astype(jnp.float32)[:, None],
-    ], axis=1)
-
-
-def unpack_particle_block(block, l):
-    """Inverse of :func:`pack_particle_block`.  (The pre-refactor ring
-    resampler unpacked lm_cov as [P, L, 2, 2] instead of the state's
-    [P, L, 4] — caught by the shared 8-shard test the moment this math was
-    unified.)"""
-    p = block.shape[0]
-    poses = block[:, :3]
-    logw = block[:, 3]
-    lm_mean = block[:, 4: 4 + 2 * l].reshape(p, l, 2)
-    lm_cov = block[:, 4 + 2 * l: 4 + 6 * l].reshape(p, l, 4)
-    lm_count = block[:, 4 + 6 * l].astype(jnp.int32)
-    return poses, logw, lm_mean, lm_cov, lm_count
 
 
 def _resample_body(poses, logw, lm_mean, lm_cov, lm_count, u0,

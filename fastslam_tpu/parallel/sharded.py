@@ -13,8 +13,11 @@ Strategy (idiomatic XLA/GSPMD, per the scaling-book recipe):
   ``fast_slam_2.py:196``), and the argmax pose estimate becomes a global
   ``all-reduce(max)``.
 
-The same compiled program runs on 1 chip (collectives no-op) or a pod slice;
-CI exercises it on 8 virtual CPU devices.
+The planes steps run the fused kernel per shard under ``shard_map`` (it is
+particle-parallel) and keep weights, Neff and resampling under GSPMD.  The
+mesh is 1-D over particles.  The same compiled program runs on 1 device
+(collectives no-op) or several; the tests exercise it on 8 virtual CPU
+devices.
 """
 
 from __future__ import annotations
@@ -23,47 +26,12 @@ from functools import partial
 from typing import Tuple
 
 import jax
-import jax.numpy as jnp
 from jax.sharding import Mesh, NamedSharding, PartitionSpec as P
 
 from fastslam_tpu.config import FastSLAMConfig
 from fastslam_tpu.core import kernels
-from fastslam_tpu.core.state import FilterState, Measurements, PlanesState
+from fastslam_tpu.core.state import FilterState, Measurements
 from fastslam_tpu.parallel.mesh import planes_state_sharding, state_sharding
-
-
-def _sharded_pallas_update(state: FilterState, measurements: Measurements,
-                           config: FastSLAMConfig, mesh: Mesh) -> FilterState:
-    """The fused Pallas measurement update under shard_map.
-
-    GSPMD cannot partition a custom call, so the (embarrassingly particle-
-    parallel) fused kernel runs per-shard via shard_map — no collectives
-    needed, every particle's landmark block is local — while the rest of the
-    step stays under GSPMD, which inserts the global reductions.
-    """
-    from jax import shard_map
-
-    from fastslam_tpu.core.pallas_kernels import fused_update
-
-    pax = config.particle_axis
-    pspec = P(pax)
-
-    def local(poses, logw, mean, cov, count, rb, valid):
-        return fused_update(
-            poses, logw, mean, cov, count, rb, valid, config,
-            interpret=config.pallas_interpret,
-        )
-
-    logw, mean, cov, count = shard_map(
-        local, mesh=mesh,
-        in_specs=(P(pax, None), pspec, P(pax, None, None), P(pax, None, None),
-                  pspec, P(), P()),
-        out_specs=(pspec, P(pax, None, None), P(pax, None, None), pspec),
-        check_vma=False,
-    )(state.poses, state.log_weights, state.lm_mean, state.lm_cov,
-      state.lm_count, measurements.range_bearing, measurements.valid)
-    return state._replace(log_weights=logw, lm_mean=mean, lm_cov=cov,
-                          lm_count=count)
 
 
 def _constrained_step(
@@ -81,16 +49,15 @@ def _constrained_step(
         return jax.tree.map(jax.lax.with_sharding_constraint, s, shardings)
 
     state = pin(state)
-    if not config.use_pallas and not config.distributed_resample:
+    if not config.distributed_resample:
         new_state, pose = kernels.fastslam_step(
             state, rotation, translation, measurements, config
         )
         return pin(new_state), pose
 
-    # decomposed step: propagate (GSPMD) -> measurement update (shard_map
-    # Pallas or GSPMD scan) -> weights (GSPMD collectives) -> resample
-    # (halo-exchange or GSPMD gather) -> estimate.  RNG stream identical to
-    # kernels.fastslam_step.
+    # decomposed step: propagate -> measurement update -> weights (GSPMD
+    # collectives) -> halo-exchange resample -> estimate.  RNG stream
+    # identical to kernels.fastslam_step.
     rng, k_rot, k_trans, k_u = jax.random.split(state.rng, 4)
     p = state.num_particles
     dt = state.poses.dtype
@@ -102,164 +69,23 @@ def _constrained_step(
         state.poses, rotation, translation, rot_noise, trans_noise
     )
     state = pin(state._replace(poses=poses, rng=rng))
-
-    if config.use_pallas:
-        state = pin(_sharded_pallas_update(state, measurements, config, mesh))
-    else:
-        state = pin(kernels.update_particles(state, measurements, config))
+    state = pin(kernels.update_particles(state, measurements, config))
 
     log_w = kernels.normalize_log_weights(state.log_weights, config)
     state = state._replace(log_weights=log_w)
     neff = kernels.effective_particles(log_w, config)
     u0 = jax.random.uniform(k_u, (), dtype=dt, maxval=1.0 / p)
 
-    if config.distributed_resample:
-        from fastslam_tpu.parallel.resample import halo_systematic_resample
+    from fastslam_tpu.parallel.resample import halo_systematic_resample
 
-        def do_resample(s):
-            return halo_systematic_resample(s, u0, mesh, config)
-    else:
-        def do_resample(s):
-            idx = kernels.systematic_resample_indices(jnp.exp(s.log_weights), u0)
-            return kernels.resample_state(s, idx, config)
+    def do_resample(s):
+        return halo_systematic_resample(s, u0, mesh, config)
 
     state = jax.lax.cond(
         neff < config.resample_threshold_frac * p, do_resample,
         lambda s: s, state,
     )
     return pin(state), kernels.estimate_pose(state)
-
-
-def _constrained_planes_step(
-    state: PlanesState,
-    rotation: jax.Array,
-    translation: jax.Array,
-    measurements: Measurements,
-    config: FastSLAMConfig,
-    mesh: Mesh,
-) -> Tuple[PlanesState, jax.Array]:
-    """fastslam_step_planes decomposed for the mesh: the fused kernel runs
-    per-shard via shard_map (GSPMD cannot partition a custom call) in its
-    NATIVE [L, P] layout — zero transposes — while weights/Neff/resampling/
-    estimate stay under GSPMD, which inserts the collectives.  RNG stream is
-    identical to kernels.fastslam_step_planes."""
-    from jax import shard_map
-
-    shardings = planes_state_sharding(mesh, config)
-    pin = lambda s: jax.tree.map(jax.lax.with_sharding_constraint, s, shardings)
-    state = pin(state)
-
-    rng, k_rot, k_trans, k_u = jax.random.split(state.rng, 4)
-    p = state.num_particles
-    dt = state.poses.dtype
-    pax = config.particle_axis
-    pspec = P(pax)
-    plane_spec = P(None, pax)
-
-    if config.proposal_mode == "fastslam2" and not config.parity_mode:
-        from fastslam_tpu.core.pallas_kernels import fused_fs2_planes
-
-        noise = jax.random.normal(k_rot, (p, 3), dtype=dt)
-        rot_eff, trans_eff, s_t2, s_r2, fxy = kernels.fs2_prior_scalars(
-            rotation, translation, config
-        )
-        yaw_pred = kernels.wrap_angle(state.poses[:, 2] + rot_eff)
-        px = state.poses[:, 0] + trans_eff * jnp.cos(yaw_pred)
-        py = state.poses[:, 1] + trans_eff * jnp.sin(yaw_pred)
-        pred = jnp.stack([px, py, yaw_pred], axis=-1)
-
-        def local_fs2(pred, logw, mx, my, ca, cb, cd, count, rb, valid,
-                      noise, s_t2, s_r2, fxy):
-            # no cc plane: the fs2 path is production-only (cc == cb)
-            out = fused_fs2_planes(
-                pred, logw, mx, my, ca, cb, None, cd, count, rb, valid,
-                noise, s_t2, s_r2, fxy, config,
-                interpret=config.pallas_interpret,
-            )
-            poses, logw, mx, my, ca, cb, _cc, cd, cnt = out
-            return poses, logw, mx, my, ca, cb, cd, cnt
-
-        poses, logw, mx, my, ca, cb, cd, cnt = shard_map(
-            local_fs2, mesh=mesh,
-            in_specs=(P(pax, None), pspec) + (plane_spec,) * 5
-                     + (pspec, P(), P(), P(pax, None), P(), P(), P()),
-            out_specs=(P(pax, None), pspec) + (plane_spec,) * 5 + (pspec,),
-            check_vma=False,
-        )(pred, state.log_weights, state.lm_mx, state.lm_my, state.lm_ca,
-          state.lm_cb, state.lm_cd, state.lm_count,
-          measurements.range_bearing, measurements.valid, noise,
-          s_t2, s_r2, fxy)
-        state = pin(state._replace(
-            poses=poses, log_weights=logw, lm_mx=mx, lm_my=my, lm_ca=ca,
-            lm_cb=cb, lm_cc=None, lm_cd=cd, lm_count=cnt, rng=rng,
-        ))
-    else:
-        from fastslam_tpu.core.pallas_kernels import fused_update_planes
-
-        rot_noise = config.rotation_noise * jax.random.normal(
-            k_rot, (p,), dtype=dt
-        )
-        trans_noise = config.translation_noise * jax.random.normal(
-            k_trans, (p,), dtype=dt
-        )
-        poses = kernels.propagate_particles(
-            state.poses, rotation, translation, rot_noise, trans_noise
-        )
-        state = pin(state._replace(poses=poses, rng=rng))
-
-        # parity carries the real (asymmetric) cc plane; production has none
-        sym = not config.parity_mode
-        n_pl = 5 if sym else 6
-        cc_in = () if sym else (state.lm_cc,)
-
-        def local(poses, logw, mx, my, ca, cb, *rest):
-            cc, cd, count, rb, valid = (
-                (None, *rest) if sym else rest
-            )
-            out = fused_update_planes(
-                poses, logw, mx, my, ca, cb, cc, cd, count, rb, valid, config,
-                interpret=config.pallas_interpret,
-            )
-            logw, mx, my, ca, cb, cc, cd, cnt = out
-            if sym:
-                return logw, mx, my, ca, cb, cd, cnt
-            return out
-
-        outs = shard_map(
-            local, mesh=mesh,
-            in_specs=(P(pax, None), pspec) + (plane_spec,) * n_pl
-                     + (pspec, P(), P()),
-            out_specs=(pspec,) + (plane_spec,) * n_pl + (pspec,),
-            check_vma=False,
-        )(state.poses, state.log_weights, state.lm_mx, state.lm_my,
-          state.lm_ca, state.lm_cb, *cc_in, state.lm_cd, state.lm_count,
-          measurements.range_bearing, measurements.valid)
-        if sym:
-            logw, mx, my, ca, cb, cd, cnt = outs
-            cc = None
-        else:
-            logw, mx, my, ca, cb, cc, cd, cnt = outs
-        state = pin(state._replace(
-            log_weights=logw, lm_mx=mx, lm_my=my, lm_ca=ca, lm_cb=cb,
-            lm_cc=cc, lm_cd=cd, lm_count=cnt,
-        ))
-
-    log_w = kernels.normalize_log_weights(state.log_weights, config)
-    state = state._replace(log_weights=log_w)
-    neff = kernels.effective_particles(log_w, config)
-    u0 = jax.random.uniform(k_u, (), dtype=dt, maxval=1.0 / p)
-
-    def do_resample(s):
-        idx = kernels.systematic_resample_indices(jnp.exp(s.log_weights), u0)
-        return kernels.resample_planes_state(s, idx, config)
-
-    state = jax.lax.cond(
-        neff < config.resample_threshold_frac * p, do_resample,
-        lambda s: s, state,
-    )
-    state = pin(state)
-    best = jnp.argmax(state.log_weights)
-    return state, state.poses[best]
 
 
 def make_sharded_planes_step(config: FastSLAMConfig, mesh: Mesh):
@@ -271,142 +97,11 @@ def make_sharded_planes_step(config: FastSLAMConfig, mesh: Mesh):
     repl = NamedSharding(mesh, P())
     ms_sharding = Measurements(range_bearing=repl, valid=repl)
     return jax.jit(
-        partial(_constrained_planes_step, config=config, mesh=mesh),
+        partial(kernels.fastslam_step_planes, config=config, mesh=mesh),
         in_shardings=(shardings, repl, repl, ms_sharding),
         out_shardings=(shardings, repl),
         donate_argnums=0,
     )
-
-
-def _constrained_planes_chunked(
-    state: PlanesState,
-    rotations: jax.Array,     # [C]
-    translations: jax.Array,  # [C]
-    measurements: Measurements,  # [C, M, ...]
-    config: FastSLAMConfig,
-    mesh: Mesh,
-    proposal_floors: Tuple[jax.Array, jax.Array] | None = None,  # ([C], [C])
-    evidence_scale: jax.Array | None = None,                     # [C]
-) -> Tuple[PlanesState, jax.Array]:
-    """fastslam_steps_planes_chunked decomposed for the mesh: the multi-tick
-    fused kernel (in-kernel propagation + C measurement loops, landmark
-    planes VMEM-resident) runs per-shard via shard_map — per-tick noise rows
-    shard with their particles, no collectives inside the chunk — while the
-    chunk-boundary weights/Neff/resampling/estimates stay under GSPMD.
-    Same chunk-boundary semantics as the single-device chunked step."""
-    from jax import shard_map
-
-    shardings = planes_state_sharding(mesh, config)
-    pin = lambda s: jax.tree.map(jax.lax.with_sharding_constraint, s, shardings)
-    state = pin(state)
-
-    rng, k_rot, k_trans, k_u = jax.random.split(state.rng, 4)
-    p = state.num_particles
-    c = rotations.shape[0]
-    dt = state.poses.dtype
-
-    pax = config.particle_axis
-    pspec = P(pax)
-    plane_spec = P(None, pax)
-
-    if config.proposal_mode == "fastslam2":
-        from fastslam_tpu.core.pallas_kernels import fused_fs2_planes_multi
-
-        noise = jax.random.normal(k_rot, (c, 3, p), dtype=dt)
-        rot_eff, trans_eff, s_t2, s_r2, fxy = kernels.fs2_prior_scalars(
-            rotations, translations, config, proposal_floors
-        )
-        dial = (jnp.ones((c,), jnp.float32) if evidence_scale is None
-                else jnp.broadcast_to(
-                    jnp.asarray(evidence_scale, jnp.float32), (c,)))
-
-        def local_fs2(poses, logw, mx, my, ca, cb, cd, count, rb, valid,
-                      noise, rot_eff, trans_eff, s_t2, s_r2, fxy, dial):
-            # production-only path: no cc plane (cc == cb)
-            out = fused_fs2_planes_multi(
-                poses, logw, mx, my, ca, cb, None, cd, count, rb, valid,
-                noise, rot_eff, trans_eff, s_t2, s_r2, fxy, config,
-                evidence_scale=dial,
-                interpret=config.pallas_interpret,
-            )
-            tx, ty, tyaw, tlogw, mx, my, ca, cb, _cc, cd, cnt = out
-            return tx, ty, tyaw, tlogw, mx, my, ca, cb, cd, cnt
-
-        tx, ty, tyaw, tlogw, mx, my, ca, cb, cd, cnt = shard_map(
-            local_fs2, mesh=mesh,
-            in_specs=(P(pax, None), pspec) + (plane_spec,) * 5
-                     + (pspec, P(), P(), P(None, None, pax),
-                        P(), P(), P(), P(), P(), P()),
-            out_specs=(plane_spec,) * 4 + (plane_spec,) * 5 + (pspec,),
-            check_vma=False,
-        )(state.poses, state.log_weights, state.lm_mx, state.lm_my,
-          state.lm_ca, state.lm_cb, state.lm_cd, state.lm_count,
-          measurements.range_bearing, measurements.valid, noise,
-          rot_eff, trans_eff, s_t2, s_r2,
-          jnp.broadcast_to(jnp.asarray(fxy, jnp.float32), (c,)), dial)
-    else:
-        from fastslam_tpu.core.pallas_kernels import fused_update_planes_multi
-
-        rot_noise = config.rotation_noise * jax.random.normal(
-            k_rot, (c, p), dtype=dt
-        )
-        trans_noise = config.translation_noise * jax.random.normal(
-            k_trans, (c, p), dtype=dt
-        )
-        rotating = (rotations != 0.0)[:, None]
-        noisy_rot = jnp.where(rotating, rotations[:, None] + rot_noise, 0.0)
-        noisy_trans = jnp.where(
-            rotating, 0.0, translations[:, None] + trans_noise
-        )
-
-        def local(poses, logw, mx, my, ca, cb, cd, count, rb, valid,
-                  nr, nt):
-            # production-only path: no cc plane (cc == cb)
-            out = fused_update_planes_multi(
-                poses, logw, mx, my, ca, cb, None, cd, count, rb, valid,
-                nr, nt, config, interpret=config.pallas_interpret,
-            )
-            tx, ty, tyaw, tlogw, mx, my, ca, cb, _cc, cd, cnt = out
-            return tx, ty, tyaw, tlogw, mx, my, ca, cb, cd, cnt
-
-        tx, ty, tyaw, tlogw, mx, my, ca, cb, cd, cnt = shard_map(
-            local, mesh=mesh,
-            in_specs=(P(pax, None), pspec) + (plane_spec,) * 5
-                     + (pspec, P(), P(), plane_spec, plane_spec),
-            out_specs=(plane_spec,) * 4 + (plane_spec,) * 5 + (pspec,),
-            check_vma=False,
-        )(state.poses, state.log_weights, state.lm_mx, state.lm_my,
-          state.lm_ca, state.lm_cb, state.lm_cd, state.lm_count,
-          measurements.range_bearing, measurements.valid, noisy_rot,
-          noisy_trans)
-
-    # per-tick estimates: global argmax over the (sharded) per-tick weights
-    best = jnp.argmax(tlogw, axis=1)
-    ticks = jnp.arange(c)
-    est = jnp.stack(
-        [tx[ticks, best], ty[ticks, best], tyaw[ticks, best]], axis=-1
-    )
-
-    log_w = kernels.normalize_log_weights(tlogw[c - 1], config)
-    state = pin(state._replace(
-        poses=jnp.stack([tx[c - 1], ty[c - 1], tyaw[c - 1]], axis=-1),
-        log_weights=log_w,
-        lm_mx=mx, lm_my=my, lm_ca=ca, lm_cb=cb, lm_cc=None, lm_cd=cd,
-        lm_count=cnt, rng=rng,
-    ))
-
-    neff = kernels.effective_particles(log_w, config)
-    u0 = jax.random.uniform(k_u, (), dtype=dt, maxval=1.0 / p)
-
-    def do_resample(s):
-        idx = kernels.systematic_resample_indices(jnp.exp(s.log_weights), u0)
-        return kernels.resample_planes_state(s, idx, config)
-
-    state = jax.lax.cond(
-        neff < config.resample_threshold_frac * p, do_resample,
-        lambda s: s, state,
-    )
-    return pin(state), est
 
 
 def make_sharded_planes_chunked_step(config: FastSLAMConfig, mesh: Mesh,
@@ -434,11 +129,10 @@ def make_sharded_planes_chunked_step(config: FastSLAMConfig, mesh: Mesh,
 
         def step(state, rotations, translations, measurements,
                  floors_xy, floors_th, dial):
-            return _constrained_planes_chunked(
-                state, rotations, translations, measurements,
-                config=config, mesh=mesh,
+            return kernels.fastslam_steps_planes_chunked(
+                state, rotations, translations, measurements, config,
                 proposal_floors=(floors_xy, floors_th),
-                evidence_scale=dial,
+                evidence_scale=dial, mesh=mesh,
             )
 
         return jax.jit(
@@ -449,7 +143,8 @@ def make_sharded_planes_chunked_step(config: FastSLAMConfig, mesh: Mesh,
             donate_argnums=0,
         )
     return jax.jit(
-        partial(_constrained_planes_chunked, config=config, mesh=mesh),
+        partial(kernels.fastslam_steps_planes_chunked, config=config,
+                mesh=mesh),
         in_shardings=(shardings, repl, repl, ms_sharding),
         out_shardings=(shardings, repl),
         donate_argnums=0,

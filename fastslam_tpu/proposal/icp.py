@@ -6,11 +6,10 @@ the mean NN distance stops changing by more than 1e-5.  The README notes it is
 disabled in the reference's main loop; the north star promotes it to the
 FastSLAM 2.0 motion proposal, so it is first-class here.
 
-TPU-native reformulation:
+Array-native reformulation:
 
 * KDTree NN -> dense all-pairs distance matrix + argmin.  Laser scans are
-  tiny (<= 180 points) so the [N, M] matrix is trivially VPU-friendly; a
-  Pallas-tiled variant for large clouds lives in ``core.pallas_kernels``.
+  tiny (<= 180 points) so the [N, M] matrix is cheap elementwise work.
 * SVD best-fit -> the closed-form 2-D solution: after centering, the optimal
   proper rotation angle is ``atan2(sum(cross), sum(dot))`` over corresponding
   point pairs.  This is mathematically identical to the reference's
@@ -22,13 +21,14 @@ TPU-native reformulation:
 Padding: invalid source points are masked out of the error/centroid sums;
 invalid target points are excluded from the NN search by an additive mask.
 
-TPU numerics note (load-bearing): rotations are carried as ANGLES and applied
-elementwise (``x' = c x - s y``), never as ``points @ R.T`` matmuls.  On TPU,
-f32 matmuls default to bf16 MXU passes; point coordinates at ~10 m quantize
-to ~4 cm per pass, which compounds across ICP iterations and wrecked the
-scan-match (measured: 3.5x worse translation residuals TPU-vs-CPU before this
-reformulation).  Elementwise rotation runs on the VPU in exact f32 and is
-also faster than an MXU round-trip for 2-vectors.
+Numerics note (load-bearing): rotations are carried as ANGLES and applied
+elementwise (``x' = c x - s y``), never as ``points @ R.T`` matmuls.  An
+accelerator may run float32 matmuls at reduced precision (bf16 passes, or
+TF32 on a GPU); point coordinates at ~10 m then quantize to cm per pass,
+which compounds across ICP iterations and wrecks the scan-match (measured
+before this reformulation: 3.5x worse translation residuals than on the
+CPU).  Elementwise rotation is exact float32 and cheaper than a matmul for
+2-vectors.
 """
 
 from __future__ import annotations
@@ -52,7 +52,7 @@ class ICPResult(NamedTuple):
 
 
 def rotate_points(points: jax.Array, theta: jax.Array) -> jax.Array:
-    """Apply R(theta) to [..., 2] points elementwise (VPU, exact f32).
+    """Apply R(theta) to [..., 2] points elementwise (exact f32).
 
     Replaces ``points @ R.T`` — see the module numerics note."""
     c, s = jnp.cos(theta), jnp.sin(theta)

@@ -7,7 +7,7 @@ Three layers:
   boundaries (``block_until_ready`` before stamping, else JAX async dispatch
   makes every phase look free and the last one pay for everything);
 * :func:`device_trace` — context manager around ``jax.profiler.trace`` for
-  full XLA/TPU traces viewable in TensorBoard/Perfetto;
+  full XLA/GPU traces viewable in TensorBoard/Perfetto;
 * :func:`annotate` — ``jax.profiler.TraceAnnotation`` wrapper so host phases
   show up inside the device timeline.
 """

@@ -3,7 +3,7 @@
 Runs the sharded filter step with a FIXED number of particles per device
 (weak scaling) at 1, 2, 4, ... N devices and reports steps/s plus the
 efficiency vs the single-device rate — the north star asks for >=80% at 2+
-hosts.  On real pod slices run under the default environment; under
+hosts.  On real GPUs run under the default environment; under
 `--virtual N` it uses N virtual CPU devices (validates the sharding and
 collective structure, not real interconnect bandwidth).
 

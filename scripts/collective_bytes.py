@@ -4,12 +4,11 @@ Compiles the sharded step on a virtual 8-device mesh with the GSPMD
 resampler vs the halo-exchange resampler and sums the bytes produced by
 every collective op (all-gather / all-reduce / collective-permute /
 all-to-all) in the compiled module.  This is the communication STRUCTURE
-evidence for docs/SCALING.md — exact op set and sizes XLA will issue on a
-real pod for this program (link bandwidth obviously differs on CPU).
+— exact op set and sizes XLA will issue on real devices for this program
+(link bandwidth obviously differs on CPU).
 
-The Pallas measurement kernel is shard-local, so the collective set is
-identical with or without it; this runs the pure-XLA path so it compiles on
-CPU.  Resample collectives sit inside the Neff conditional — they are
+The fused GPU kernel is shard-local, so the collective set is identical
+with or without it; this runs the pure-XLA path so it compiles on CPU.  Resample collectives sit inside the Neff conditional — they are
 counted (the compiled module contains both branches) and reported
 separately as worst-case per-tick bytes.
 

@@ -1,7 +1,7 @@
 """Per-tick forensics for the fs2+adaptive wheel-slip rows.
 
 Round-4 verdict (Weak #4): fs2+adaptive slip seed 3 reads ~4x its seed-7/21
-siblings (0.122 vs 0.036/0.029 at N=100 CPU; same signature at N=100k TPU),
+siblings (0.122 vs 0.036/0.029 at N=100 CPU; same signature at N=100k on the kernel engine),
 while still beating motion-only (0.197).  Reproducible across engines, so
 the cause is the estimator/world interaction, not scale.  This script
 replays one (seed, slip) cell with the adaptive stack's internals logged

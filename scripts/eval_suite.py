@@ -11,13 +11,13 @@ from every JSON present, so sections can run on different backends):
   base   — oracle + parity + production modes at N=100/1000 (CPU, ~4 min)
   slip   — wheel-slip rows INCLUDING the oracle-under-slip baseline (CPU)
   noise  — sensor-noise rows at range_noise_std in {0.01, 0.03} (CPU)
-  scale  — N=10k / N=100k rows on the planes/chunked engines.  Run WITHOUT
-           --cpu on the TPU (the north-star scale evidence); with --cpu it
-           runs the one 10k sanity row on the XLA blocks path.
+  scale  — N=10k / N=100k rows on the planes/chunked kernel engines.  Run
+           WITHOUT --cpu on a GPU (the north-star scale evidence); with --cpu
+           it runs the one 10k sanity row on the XLA blocks path.
 
 Usage:
   python scripts/eval_suite.py --cpu --sections base,slip,noise
-  python scripts/eval_suite.py --sections scale          # on the TPU
+  python scripts/eval_suite.py --sections scale          # on a GPU
   python scripts/eval_suite.py --render                  # EVAL.md only
 """
 
@@ -225,8 +225,8 @@ def section_noise(args):
 def section_scale(args):
     """North-star scale evidence: ATE at N=10k and N=100k on the actual
     engines the headline bench measures (planes per-tick, chunked C=8, and
-    chunked+fs2), run on the TPU.  With --cpu, runs only the 10k sanity row
-    on the XLA blocks path (interpret-mode Pallas at 100k is impractical)."""
+    chunked+fs2), run on a GPU.  With --cpu, runs only the 10k sanity row
+    on the XLA blocks path (the interpreted kernel at 100k is impractical)."""
     seeds = args.seeds[: args.scale_seeds]
     if args.cpu:
         rows = {"production (N=10k, CPU blocks sanity)": []}
@@ -239,46 +239,46 @@ def section_scale(args):
     adaptive = dict(proposal_mode="fastslam2", use_icp_proposal=True,
                     adaptive_proposal_floors=True)
     modes = {
-        "production (N=10k, TPU planes)": dict(
+        "production (N=10k, planes kernel)": dict(
             num_particles=10_000, parity_mode=False, use_pallas=True),
-        "production (N=100k, TPU planes)": dict(
+        "production (N=100k, planes kernel)": dict(
             num_particles=100_000, parity_mode=False, use_pallas=True),
     }
     chunked_modes = {
-        "production chunked C=8 (N=10k, TPU)": dict(
+        "production chunked C=8 (N=10k, kernel)": dict(
             num_particles=10_000, parity_mode=False, use_pallas=True),
-        "production chunked C=8 (N=100k, TPU)": dict(
+        "production chunked C=8 (N=100k, kernel)": dict(
             num_particles=100_000, parity_mode=False, use_pallas=True),
         # the round-4 headline-bench config: 16 ticks per kernel
         # invocation (resampling every 16 ticks) — this row is the
         # accuracy backing for bench.py's chunk=16
-        "production chunked C=16 (N=100k, TPU)": dict(
+        "production chunked C=16 (N=100k, kernel)": dict(
             num_particles=100_000, parity_mode=False, use_pallas=True,
             _chunk_size=16),
-        "production+fs2 chunked C=8 (N=100k, TPU)": dict(
+        "production+fs2 chunked C=8 (N=100k, kernel)": dict(
             num_particles=100_000, parity_mode=False, use_pallas=True,
             proposal_mode="fastslam2"),
         # accuracy backing for the fs2 bench config at chunk 16 (the
         # round-5 fs2 sweep — resampling every 16 ticks with the
         # measurement-informed proposal)
-        "production+fs2 chunked C=16 (N=100k, TPU)": dict(
+        "production+fs2 chunked C=16 (N=100k, kernel)": dict(
             num_particles=100_000, parity_mode=False, use_pallas=True,
             proposal_mode="fastslam2", _chunk_size=16),
         # the accuracy-flagship stack at north-star scale: fs2 proposal +
         # batched ICP + adaptive floors on the chunked engine
-        "production+fs2+adaptive chunked C=8 (N=10k, TPU)": dict(
+        "production+fs2+adaptive chunked C=8 (N=10k, kernel)": dict(
             num_particles=10_000, parity_mode=False, use_pallas=True,
             **adaptive),
-        "production+fs2+adaptive chunked C=8 (N=100k, TPU)": dict(
+        "production+fs2+adaptive chunked C=8 (N=100k, kernel)": dict(
             num_particles=100_000, parity_mode=False, use_pallas=True,
             **adaptive),
     }
     # wheel-slip rows at scale: the fs2+adaptive stack must BEAT motion-only
     # when the odometry lies (ICP blended in; floors open to the slip scale)
     slip_modes = {
-        "production chunked C=8 (N=100k, TPU, wheel slip)": dict(
+        "production chunked C=8 (N=100k, kernel, wheel slip)": dict(
             num_particles=100_000, parity_mode=False, use_pallas=True),
-        "production+fs2+adaptive chunked C=8 (N=100k, TPU, wheel slip)":
+        "production+fs2+adaptive chunked C=8 (N=100k, kernel, wheel slip)":
             dict(num_particles=100_000, parity_mode=False, use_pallas=True,
                  proposal_mode="fastslam2", use_icp_proposal=True,
                  adaptive_proposal_floors=True),
@@ -315,8 +315,8 @@ def section_jderobot(args):
     """The engine consuming the reference's NATIVE data format end-to-end:
     every canned JdeRobot HAL trace in data/jderobot/ (recorded through the
     duck-typed HAL surface per robot.py:32-58) replayed at N=1k per-tick
-    and — without --cpu — N=100k on the TPU chunked engine, each bounded by
-    the oracle on the same trace.  The TPU run adds wheel-slip rows on the
+    and — without --cpu — N=100k on the chunked kernel engine, each bounded
+    by the oracle on the same trace.  That run adds wheel-slip rows on the
     native trace (motion-only vs the fs2+adaptive flagship) so the slip
     robustness story is told on the reference's own data format, not only
     on synthetic worlds."""
@@ -347,22 +347,22 @@ def section_jderobot(args):
             for log, gt in logs],
     }
     if not args.cpu:
-        tpu = dict(num_particles=100_000, parity_mode=False, use_pallas=True)
+        kern = dict(num_particles=100_000, parity_mode=False, use_pallas=True)
         fs2ad = dict(num_particles=100_000, parity_mode=False,
                      use_pallas=True, proposal_mode="fastslam2",
                      use_icp_proposal=True, adaptive_proposal_floors=True)
-        rows["production chunked C=8 (N=100k, TPU, JdeRobot trace)"] = [
-            run_mode(log, gt, tpu, chunked=True) for log, gt in logs]
+        rows["production chunked C=8 (N=100k, kernel, JdeRobot trace)"] = [
+            run_mode(log, gt, kern, chunked=True) for log, gt in logs]
         slip_oracle = (f"reference equations (NumPy oracle, "
                        f"N={args.oracle_particles}, JdeRobot trace, "
                        f"wheel slip)")
         rows[slip_oracle] = [
             run_oracle_row(log, gt, args.oracle_particles,
                            odometry_noise=SLIP) for log, gt in logs]
-        rows["production chunked C=8 (N=100k, TPU, JdeRobot, wheel slip)"] \
-            = [run_mode(log, gt, tpu, chunked=True, odometry_noise=SLIP)
+        rows["production chunked C=8 (N=100k, kernel, JdeRobot, wheel slip)"] \
+            = [run_mode(log, gt, kern, chunked=True, odometry_noise=SLIP)
                for log, gt in logs]
-        rows["production+fs2+adaptive chunked C=8 (N=100k, TPU, JdeRobot, "
+        rows["production+fs2+adaptive chunked C=8 (N=100k, kernel, JdeRobot, "
              "wheel slip)"] = [
             run_mode(log, gt, fs2ad, chunked=True, odometry_noise=SLIP)
             for log, gt in logs]
@@ -382,7 +382,7 @@ SECTION_TITLES = {
     "slip": "Wheel slip (odometry corrupted by 0.02/tick; "
             "ground truth clean)",
     "noise": "Sensor noise (laser range noise above the 0.005 base)",
-    "scale": "North-star scale (N=10k / N=100k on the TPU engines)",
+    "scale": "North-star scale (N=10k / N=100k on the kernel engines)",
     "scale_cpu": "North-star scale (CPU sanity)",
     "jderobot": "JdeRobot native-format trace (data/jderobot/)",
     "jderobot_cpu": "JdeRobot native-format trace (CPU, N=1k)",
@@ -430,7 +430,7 @@ is kept and the corner documented rather than tuned per-regime.  The
 `chunked C=8` rows are the headline-bench batch-replay engine (resampling
 at chunk boundaries; ~1.3x throughput for a small ATE cost vs per-tick
 production).  The scale table runs the same worlds at N=10k/100k on the
-real TPU planes/chunked engines — the exact code path the headline bench
+planes/chunked kernel engines — the exact code path the headline bench
 times — showing the ATE bound holds at north-star particle counts.
 """
 
@@ -465,6 +465,8 @@ def render(out):
             cells = " | ".join(f"{v:.3f}" for v in vals)
             lines.append(
                 f"| {rname} | {cells} | **{np.mean(vals):.3f}** |")
+        if "regenerate" in blob:
+            lines += ["", f"Stale: {blob['regenerate']}."]
     lines.append(NOTES)
     with open(out, "w") as f:
         f.write("\n".join(lines) + "\n")
@@ -492,12 +494,10 @@ def main():
         if args.cpu:
             jax.config.update("jax_platforms", "cpu")
         else:
-            # TPU sections recompile many large configs — persist them
-            d = os.environ.get("JAX_COMPILATION_CACHE_DIR",
-                               os.path.expanduser("~/.cache/jax_fastslam"))
-            os.makedirs(d, exist_ok=True)
-            jax.config.update("jax_compilation_cache_dir", d)
-            jax.config.update("jax_persistent_cache_min_compile_time_secs", 5)
+            # the GPU sections compile many large configs — persist them
+            from fastslam_tpu.utils.compile_cache import enable_compile_cache
+
+            enable_compile_cache()
 
         wanted = (args.sections.split(",") if args.sections
                   else ["base", "slip", "noise"])

@@ -68,7 +68,7 @@ def test_sharded_gn_step_matches_single_device(mesh, sparse):
     step = make_sharded_gn_step(mesh, sparse=sparse)
     if sparse:
         # the sparse step takes COLUMN vectors (pose_graph.
-        # _obs_geometry_cols TPU layout note)
+        # _obs_geometry_cols layout note)
         pair_a, pair_b, pair_valid = build_schur_pairs(g8, 8)
         rb = np.asarray(g8.obs_rb, np.float32)
         wi = np.asarray(g8.obs_info, np.float32)

@@ -84,38 +84,3 @@ def test_sharded_step_with_distributed_resample(mesh):
     np.testing.assert_allclose(np.asarray(pose_a), np.asarray(pose_b), atol=1e-5)
     np.testing.assert_allclose(np.asarray(st_a.lm_mean), np.asarray(st_b.lm_mean),
                                atol=1e-5)
-
-
-@pytest.mark.parametrize("profile", ["healthy", "collapsed"])
-def test_ring_resampler_math_at_8_shards(mesh, profile):
-    """The Pallas ring resampler's ENTIRE path except the RDMA kernel —
-    pack/unpack, shared ancestor-window math, 3-block window order, psum'd
-    full-gather fallback — pinned at 8 shards by substituting a ppermute
-    exchange with the identical (left, right) contract (the CPU backend
-    cannot lower make_async_remote_copy).  Must be bit-identical to both
-    the single-device resampler and the production halo resampler."""
-    from fastslam_tpu.parallel.ring_resample import (
-        _ppermute_exchange, ring_halo_resample,
-    )
-
-    st = make_state(profile, seed=5)
-    u0 = jnp.float32(0.004)
-
-    idx = kernels.systematic_resample_indices(jnp.exp(st.log_weights), u0)
-    want = kernels.resample_state(st, idx, CFG)
-
-    st_sharded = shard_state(st, mesh, CFG)
-    got = ring_halo_resample(st_sharded, u0, mesh, CFG,
-                             _exchange=_ppermute_exchange)
-    halo = halo_systematic_resample(shard_state(st, mesh, CFG), u0, mesh, CFG)
-
-    for field in ("poses", "log_weights", "lm_mean", "lm_cov"):
-        np.testing.assert_allclose(
-            np.asarray(getattr(got, field)),
-            np.asarray(getattr(want, field)), atol=1e-6, err_msg=field)
-        np.testing.assert_array_equal(
-            np.asarray(getattr(got, field)),
-            np.asarray(getattr(halo, field)), err_msg=field)
-    np.testing.assert_array_equal(np.asarray(got.lm_count),
-                                  np.asarray(want.lm_count))
-    assert len(got.poses.addressable_shards) == 8

@@ -121,10 +121,9 @@ def test_run_driver_production_hooks(tmp_path):
 
 
 def test_runner_planes_engine_matches_blocks():
-    """engine='planes' (Pallas-native layout carried between ticks) must
-    produce the same trajectory as the block-layout pallas path: identical
-    RNG stream, identical kernel arithmetic, only the carried layout
-    differs (P=128 -> no tile padding -> bitwise-comparable)."""
+    """The kernel on the planes state (layout carried between ticks) must
+    produce the same trajectory as the XLA path on the blocks state:
+    identical RNG stream and arithmetic, another layout and compiler."""
     from fastslam_tpu.app.runner import run_driver
     from fastslam_tpu.config import FastSLAMConfig
     from fastslam_tpu.drivers.replay import ReplayDriver, record_log
@@ -136,10 +135,10 @@ def test_runner_planes_engine_matches_blocks():
         use_pallas=True, pallas_interpret=True,
     )
     h_blocks = run_driver(
-        ReplayDriver(log), base.replace(engine="blocks"), rng=0
+        ReplayDriver(log), base.replace(use_pallas=False), rng=0
     )
     h_planes = run_driver(
-        ReplayDriver(log), base.replace(engine="planes"), rng=0
+        ReplayDriver(log), base, rng=0
     )
     np.testing.assert_allclose(
         np.asarray(h_planes.est_poses), np.asarray(h_blocks.est_poses),

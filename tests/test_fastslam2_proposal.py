@@ -203,17 +203,6 @@ def test_adaptive_floors_require_icp_and_fs2():
 # fused in-kernel proposal (planes / chunked Pallas engines)
 # ---------------------------------------------------------------------------
 
-def test_pallas_sin_cos_poly_accuracy():
-    """In-kernel trig substitute (Mosaic lowers no sin/cos): max error vs
-    jnp.sin/cos must stay at f32 rounding level over the full wrap range."""
-    from fastslam_tpu.core.pallas_kernels import _sin_cos
-
-    x = jnp.linspace(-np.pi, np.pi, 200_001)
-    s, c = _sin_cos(x)
-    assert float(jnp.max(jnp.abs(s - jnp.sin(x)))) < 3e-7
-    assert float(jnp.max(jnp.abs(c - jnp.cos(x)))) < 3e-7
-
-
 def _seeded_pair(n=128, l=16, m=4):
     """(blocks state, planes state) with identical populated maps."""
     from fastslam_tpu.core.state import to_planes
@@ -222,8 +211,7 @@ def _seeded_pair(n=128, l=16, m=4):
         num_particles=n, max_landmarks=l, max_measurements=m,
         parity_mode=False, proposal_mode="fastslam2",
     )
-    cfg_p = cfg_b.replace(use_pallas=True, pallas_interpret=True,
-                          engine="planes")
+    cfg_p = cfg_b.replace(use_pallas=True, pallas_interpret=True)
     st = init_state(cfg_b, rng=0)
     seed_cfg = cfg_b.replace(proposal_mode="motion")
     ms = pad_measurements(cfg_b, [(2.0, 0.3), (3.0, -1.0), (1.5, 2.0)])
@@ -231,13 +219,13 @@ def _seeded_pair(n=128, l=16, m=4):
                                   ms, seed_cfg)
     st, _ = kernels.fastslam_step(st, jnp.float32(0.1), jnp.float32(0.0),
                                   ms, seed_cfg)
-    return cfg_b, cfg_p, st, to_planes(st)
+    return cfg_b, cfg_p, st, to_planes(st, cfg_p)
 
 
 def test_planes_fs2_step_matches_blocks_path():
     """The fused proposal+EKF kernel must reproduce the XLA fs2 path
     (fastslam2_propose + scan EKF) to float tolerance — same RNG stream,
-    same math; the only differences are in-kernel polynomial trig (~1e-7)
+    same math; the only differences are the two compilers' rounding (~1e-7)
     and summation order."""
     from fastslam_tpu.core.state import from_planes
 
@@ -351,34 +339,35 @@ def test_planes_fs2_evidence_scale_matches_blocks_path():
 
 
 def test_chunked_fs2_unroll_is_bit_exact():
-    """The fs2 chunked kernel's manual measurement-loop unroll (both the
-    proposal accumulation and the EKF loop) must be a pure scheduling
-    change — bit-identical states."""
-    from fastslam_tpu.core.state import Measurements, init_planes_state
+    """The fs2 chunked kernel's particle tile (the GPU's scheduling lever:
+    particles per program) must be a pure scheduling change — bit-identical
+    trajectories and maps for every tile size."""
+    from fastslam_tpu.core import pallas_kernels
 
-    cfg_b, cfg_p, _, _ = _seeded_pair()
-    c = 4
-    rots = jnp.array([0.0, 0.1, 0.0, -0.05], jnp.float32)
-    trans = jnp.array([0.3, 0.0, 0.25, 0.0], jnp.float32)
+    cfg_b, cfg_p, _, st_p = _seeded_pair()
+    c, p = 4, cfg_p.num_particles
     ms = pad_measurements(cfg_b, [(2.0, 0.3), (3.0, -1.0)])
-    rb = jnp.tile(ms.range_bearing[None], (c, 1, 1))
-    mv = jnp.tile(ms.valid[None], (c, 1))
+    rng = np.random.default_rng(3)
+    rows = tuple(jnp.asarray(rng.normal(size=(c, p)), jnp.float32)
+                 for _ in range(3))
+    scalars = jnp.asarray(
+        [[0.0, 0.3, 1e-4, 1e-4, 1e-4, 1.0], [0.1, 0.0, 1e-4, 1e-4, 1e-4, 0.5],
+         [0.0, 0.25, 1e-4, 1e-4, 1e-4, 1.0], [-0.05, 0.0, 1e-4, 1e-4, 1e-4,
+                                               0.0]], jnp.float32)
 
-    def run(unroll):
-        st = init_planes_state(cfg_p, rng=0)
-        return kernels.fastslam_steps_planes_chunked(
-            st, rots, trans, Measurements(rb, mv), cfg_p, unroll=unroll
-        )
+    def run(block):
+        return pallas_kernels.filter_ticks(
+            st_p.poses, st_p.log_weights,
+            (st_p.lm_mx, st_p.lm_my, st_p.lm_ca, st_p.lm_cb, None,
+             st_p.lm_cd), st_p.lm_count,
+            jnp.tile(ms.range_bearing[None], (c, 1, 1)),
+            jnp.tile(ms.valid[None], (c, 1)), rows, scalars, cfg_p,
+            interpret=True, block=block)
 
-    base_st, base_est = run(1)
-    for unroll in (2, 4):
-        u_st, u_est = run(unroll)
-        np.testing.assert_array_equal(np.asarray(u_est),
-                                      np.asarray(base_est))
-        np.testing.assert_array_equal(np.asarray(u_st.lm_mx),
-                                      np.asarray(base_st.lm_mx))
-        np.testing.assert_array_equal(np.asarray(u_st.log_weights),
-                                      np.asarray(base_st.log_weights))
+    base = jax.tree.leaves(run(16))
+    for block in (32, 64):
+        for got, want in zip(jax.tree.leaves(run(block)), base):
+            np.testing.assert_array_equal(np.asarray(got), np.asarray(want))
 
 
 def test_chunked_fs2_runs_and_is_finite():

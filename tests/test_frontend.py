@@ -1,8 +1,9 @@
 """Front-end tests: line filter vs scipy, clustering vs sklearn DBSCAN,
 Hough corner detection on synthetic geometry."""
 
-import numpy as np
+import jax
 import jax.numpy as jnp
+import numpy as np
 import pytest
 
 from fastslam_tpu.config import FastSLAMConfig
@@ -141,3 +142,27 @@ def test_extract_corners_empty_scan_is_safe():
     valid = np.zeros(180, bool)
     corners, cvalid = extract_corners(jnp.asarray(pts), jnp.asarray(valid), CFG)
     assert not np.asarray(cvalid).any()
+
+
+def _float_scatter_adds(jaxpr):
+    """Float scatter-adds in a jaxpr, nested ones too."""
+    out = []
+    for eqn in jaxpr.eqns:
+        if (eqn.primitive.name == "scatter-add"
+                and jnp.issubdtype(eqn.outvars[0].aval.dtype, jnp.floating)):
+            out.append(eqn)
+        for sub in jax.core.jaxprs_in_params(eqn.params):
+            out += _float_scatter_adds(sub)
+    return out
+
+
+def test_frontend_has_no_float_scatter_add():
+    """A GPU adds a scatter-add's colliding updates with atomics in no fixed
+    order, so a float one makes the measurements (and every tick after)
+    differ from run to run in their last bits.  The default frontend has
+    none (the Hough votes go through an exact one-hot product, the cluster
+    centroids through masked row sums)."""
+    pts, valid = _square_room_scan()
+    jaxpr = jax.make_jaxpr(lambda p, v: scan_to_measurements(p, v, CFG))(
+        jnp.asarray(pts), jnp.asarray(valid))
+    assert not _float_scatter_adds(jaxpr.jaxpr)

@@ -1,8 +1,8 @@
 """The fused production online tick (ONE jitted dispatch per tick:
 ICP proposal + frontend + tracking + filter step — app/runner.py).
 
-The split path dispatches frontend / ICP / step separately; each remote-TPU
-dispatch costs ~50-80 ms, so the fused path is what production online runs
+The split path dispatches frontend / ICP / step separately; the fused path
+waits on one host round trip per tick and is what production online runs
 use.  These tests pin (a) agreement with the split path and (b) the full
 ICP + fastslam2 + adaptive-floors stack running fused end to end.
 """

@@ -200,8 +200,8 @@ def test_systematic_resample_matches_oracle(seed):
 
 @pytest.mark.parametrize("seed", range(4))
 def test_systematic_resample_matches_searchsorted(seed):
-    """The search-free staircase form (round 5: searchsorted's binary
-    search was 12.5 ms at P=100k on TPU) must return BIT-IDENTICAL
+    """The search-free staircase form (kernels.systematic_resample_indices)
+    must return BIT-IDENTICAL
     indices to the reference cumsum+searchsorted formulation, including
     float-tie and degenerate-weight cases."""
     import jax.numpy as jnp
@@ -302,16 +302,13 @@ def test_fastslam_step_jits_and_runs():
 
 
 def test_parity_planes_requires_lane_tile_multiple():
-    """The planes engine pads the particle count up to the Pallas lane tile
-    and runs the padded entries as real particles; under the parity contract
-    that would silently change N, so parity runs only at counts the padding
-    leaves unchanged — engine='auto' falls back to blocks, engine='planes'
-    raises (ADVICE r1: core/state.py:177)."""
+    """The parity contract fixes N (normalization denominator, Neff, the
+    resample threshold).  The kernel masks the tail of its last particle
+    tile instead of padding P, so the planes engine keeps N at every count
+    and parity runs on it at any P."""
+    from fastslam_tpu.core.pallas_kernels import particle_block
+    from fastslam_tpu.core.state import init_planes_state
+
     cfg = FastSLAMConfig(num_particles=100, parity_mode=True, use_pallas=True)
-    assert not cfg.use_planes_engine()  # auto -> blocks
-    with pytest.raises(ValueError):
-        cfg.replace(engine="planes").use_planes_engine()
-    ok = FastSLAMConfig(num_particles=128, parity_mode=True, use_pallas=True)
-    assert ok.use_planes_engine()
-    prod = FastSLAMConfig(num_particles=100, parity_mode=False, use_pallas=True)
-    assert prod.use_planes_engine()  # production runs the padded count
+    assert 100 % particle_block(100)          # not a tile multiple
+    assert init_planes_state(cfg).num_particles == 100

@@ -1,4 +1,10 @@
-"""Pallas kernels vs the XLA reference paths (interpret mode on CPU)."""
+"""The fused filter kernel vs the XLA reference paths (interpret mode on CPU).
+
+The kernel itself compiles only for an NVIDIA GPU; here it runs in Pallas
+interpret mode, and its Triton lowering (the step before GPU code
+generation) is built without a GPU.  ``chip_smoke.py`` compares it with the
+XLA path on the card at full width.
+"""
 
 import numpy as np
 import jax
@@ -7,9 +13,10 @@ import pytest
 
 from fastslam_tpu.config import FastSLAMConfig
 from fastslam_tpu.core import kernels
-from fastslam_tpu.core.pallas_kernels import fused_update, icp_correspondences
-from fastslam_tpu.core.state import init_state, pad_measurements
-from fastslam_tpu.proposal.icp import nearest_neighbors
+from fastslam_tpu.core.pallas_kernels import filter_ticks, particle_block
+from fastslam_tpu.core.state import (
+    Measurements, from_planes, init_state, pad_measurements, to_planes,
+)
 
 
 def build_state(cfg, seed=0, fill=3):
@@ -31,6 +38,35 @@ def build_state(cfg, seed=0, fill=3):
     )
 
 
+def kernel_update(st, ms, cfg):
+    """The kernel's measurement update on a blocks state (planes round trip,
+    zero motion): the counterpart of ``kernels.update_particles``."""
+    ps = to_planes(st, cfg)
+    p = cfg.num_particles
+    zero = jnp.zeros((1, p), jnp.float32)
+    traj, planes, count = filter_ticks(
+        ps.poses, ps.log_weights,
+        (ps.lm_mx, ps.lm_my, ps.lm_ca, ps.lm_cb, ps.lm_cc, ps.lm_cd),
+        ps.lm_count, ms.range_bearing[None], ms.valid[None], (zero, zero),
+        None, cfg, interpret=True,
+    )
+    mx, my, ca, cb, cc, cd = planes
+    out = from_planes(ps._replace(
+        log_weights=traj[3][0], lm_mx=mx, lm_my=my, lm_ca=ca, lm_cb=cb,
+        lm_cc=cc, lm_cd=cd, lm_count=count,
+    ))
+    return out
+
+
+def assert_states_close(got, want, tol=1e-5):
+    np.testing.assert_array_equal(np.asarray(got.lm_count),
+                                  np.asarray(want.lm_count))
+    for name in ("log_weights", "lm_mean", "lm_cov"):
+        np.testing.assert_allclose(np.asarray(getattr(got, name)),
+                                   np.asarray(getattr(want, name)),
+                                   rtol=tol, atol=tol, err_msg=name)
+
+
 @pytest.mark.parametrize("parity", [True, False])
 def test_fused_update_matches_scan_path(parity):
     cfg = FastSLAMConfig(
@@ -38,20 +74,8 @@ def test_fused_update_matches_scan_path(parity):
     )
     st = build_state(cfg, seed=1)
     ms = pad_measurements(cfg, [(2.0, 0.3), (3.5, -0.7), (1.0, 2.5)])
-
-    want = kernels.update_particles(st, ms, cfg)
-    logw, mean, cov, cnt = fused_update(
-        st.poses, st.log_weights, st.lm_mean, st.lm_cov, st.lm_count,
-        ms.range_bearing, ms.valid, cfg, interpret=True,
-    )
-
-    np.testing.assert_array_equal(np.asarray(cnt), np.asarray(want.lm_count))
-    np.testing.assert_allclose(np.asarray(logw), np.asarray(want.log_weights),
-                               rtol=1e-5, atol=1e-5)
-    np.testing.assert_allclose(np.asarray(mean), np.asarray(want.lm_mean),
-                               rtol=1e-5, atol=1e-5)
-    np.testing.assert_allclose(np.asarray(cov), np.asarray(want.lm_cov),
-                               rtol=1e-5, atol=1e-5)
+    assert_states_close(kernel_update(st, ms, cfg),
+                        kernels.update_particles(st, ms, cfg))
 
 
 def test_fused_update_appends_and_capacity():
@@ -59,37 +83,31 @@ def test_fused_update_appends_and_capacity():
     st = init_state(cfg, rng=0)  # empty maps
     # far-apart measurements -> two appends, then capacity drop
     ms = pad_measurements(cfg, [(2.0, 0.0), (8.0, 2.8), (5.0, -2.0)])
-    logw, mean, cov, cnt = fused_update(
-        st.poses, st.log_weights, st.lm_mean, st.lm_cov, st.lm_count,
-        ms.range_bearing, ms.valid, cfg, interpret=True,
-    )
+    got = kernel_update(st, ms, cfg)
     want = kernels.update_particles(st, ms, cfg)
-    np.testing.assert_array_equal(np.asarray(cnt), np.asarray(want.lm_count))
-    np.testing.assert_allclose(np.asarray(mean), np.asarray(want.lm_mean),
-                               rtol=1e-5, atol=1e-5)
+    assert_states_close(got, want)
+    np.testing.assert_array_equal(np.asarray(got.lm_count), np.full(8, 2))
 
 
 def test_fused_update_via_config_flag():
-    cfg_scan = FastSLAMConfig(num_particles=16, max_landmarks=8, max_measurements=4)
+    """use_pallas selects the planes engine, whose step matches the blocks
+    step (same RNG stream, same arithmetic, another layout)."""
+    cfg_scan = FastSLAMConfig(num_particles=16, max_landmarks=8,
+                              max_measurements=4)
     cfg_pl = cfg_scan.replace(use_pallas=True, pallas_interpret=True)
     st = build_state(cfg_scan, seed=2)
     ms = pad_measurements(cfg_scan, [(2.5, 0.1), (4.0, -1.2)])
-    out_scan = kernels.update_particles(st, ms, cfg_scan)
-    out_pl = kernels.update_particles(st, ms, cfg_pl)
-    np.testing.assert_allclose(
-        np.asarray(out_pl.lm_mean), np.asarray(out_scan.lm_mean), rtol=1e-5, atol=1e-5
-    )
-    np.testing.assert_array_equal(
-        np.asarray(out_pl.lm_count), np.asarray(out_scan.lm_count)
-    )
+    want, _ = kernels.fastslam_step(st, jnp.float32(0.0), jnp.float32(0.4),
+                                    ms, cfg_scan)
+    got, _ = kernels.fastslam_step_planes(
+        to_planes(st, cfg_pl), jnp.float32(0.0), jnp.float32(0.4), ms, cfg_pl)
+    assert_states_close(from_planes(got), want)
 
 
 @pytest.mark.parametrize("parity", [True, False])
 def test_planes_step_matches_block_step(parity):
-    """fastslam_step_planes == fastslam_step(use_pallas) — same RNG stream,
-    same kernel arithmetic, only the carried layout differs."""
-    from fastslam_tpu.core.state import from_planes, to_planes
-
+    """fastslam_step_planes == fastslam_step — same RNG stream, same
+    arithmetic, only the carried layout differs."""
     cfg = FastSLAMConfig(
         num_particles=128, max_landmarks=8, max_measurements=4,
         parity_mode=parity, use_pallas=True, pallas_interpret=True,
@@ -101,101 +119,133 @@ def test_planes_step_matches_block_step(parity):
         st, jnp.float32(0.0), jnp.float32(0.4), ms, cfg
     )
     got_ps, got_pose = kernels.fastslam_step_planes(
-        to_planes(st), jnp.float32(0.0), jnp.float32(0.4), ms, cfg
+        to_planes(st, cfg), jnp.float32(0.0), jnp.float32(0.4), ms, cfg
     )
     got_st = from_planes(got_ps)
 
     np.testing.assert_allclose(np.asarray(got_pose), np.asarray(want_pose),
                                rtol=1e-6, atol=1e-6)
-    np.testing.assert_array_equal(np.asarray(got_st.lm_count),
-                                  np.asarray(want_st.lm_count))
-    np.testing.assert_allclose(np.asarray(got_st.lm_mean),
-                               np.asarray(want_st.lm_mean), rtol=1e-5, atol=1e-5)
-    np.testing.assert_allclose(np.asarray(got_st.log_weights),
-                               np.asarray(want_st.log_weights),
-                               rtol=1e-5, atol=1e-5)
+    assert_states_close(got_st, want_st)
     np.testing.assert_allclose(np.asarray(got_st.poses),
                                np.asarray(want_st.poses), rtol=1e-6, atol=1e-6)
 
 
 def test_planes_round_trip_pads_to_lane_tile():
-    from fastslam_tpu.core.state import from_planes, to_planes
-
+    """Blocks <-> planes is exact at a particle count that is not a multiple
+    of the kernel's tile: the kernel masks the last tile, so the planes
+    state keeps P as it is (no padded particles)."""
     cfg = FastSLAMConfig(num_particles=100, max_landmarks=8, max_measurements=4)
+    assert particle_block(100) == 32 and 100 % particle_block(100)
     st = build_state(cfg, seed=5)
     ps = to_planes(st)
-    assert ps.num_particles == 128  # rounded up to the lane tile
-    # padded particles carry ~zero weight
-    assert float(np.exp(np.asarray(ps.log_weights[100:])).sum()) < 1e-20
-    back = from_planes(ps, num_particles=100)
-    np.testing.assert_array_equal(np.asarray(back.poses), np.asarray(st.poses))
-    np.testing.assert_array_equal(np.asarray(back.lm_mean), np.asarray(st.lm_mean))
-    np.testing.assert_array_equal(np.asarray(back.lm_cov), np.asarray(st.lm_cov))
-    np.testing.assert_array_equal(np.asarray(back.lm_count), np.asarray(st.lm_count))
+    assert ps.num_particles == 100 and ps.lm_mx.shape == (8, 100)
+    back = from_planes(ps)
+    for name in ("poses", "log_weights", "lm_mean", "lm_cov", "lm_count"):
+        np.testing.assert_array_equal(np.asarray(getattr(back, name)),
+                                      np.asarray(getattr(st, name)))
 
 
-def test_icp_correspondences_match_dense_nn():
-    rng = np.random.default_rng(3)
-    src = rng.normal(0, 2, (64, 2)).astype(np.float32)
-    tgt = rng.normal(0, 2, (96, 2)).astype(np.float32)
-    tvalid = rng.random(96) > 0.2
+@pytest.mark.parametrize("p,l", [(100, 32), (100, 48), (37, 48)])
+def test_kernel_tail_and_odd_landmarks_match_scan(p, l):
+    """P not a multiple of the tile and L not a power of two: the masked
+    tail particles and the slot rows above L must not leak into the result
+    (appends stop exactly at capacity L)."""
+    cfg = FastSLAMConfig(num_particles=p, max_landmarks=l, max_measurements=8,
+                         parity_mode=False)
+    st = build_state(cfg, seed=p + l, fill=l - 2)
+    ms = pad_measurements(cfg, [(2.0 + 0.7 * i, -2.5 + 0.6 * i)
+                                for i in range(8)])
+    got = kernel_update(st, ms, cfg)
+    assert_states_close(got, kernels.update_particles(st, ms, cfg))
+    assert int(np.asarray(got.lm_count).max()) <= l
 
-    d_want, i_want = nearest_neighbors(
-        jnp.asarray(src), jnp.asarray(tgt), jnp.asarray(tvalid)
-    )
-    d_got, i_got = icp_correspondences(
-        jnp.asarray(src), jnp.asarray(tgt), jnp.asarray(tvalid), interpret=True
-    )
-    np.testing.assert_array_equal(np.asarray(i_got), np.asarray(i_want))
-    np.testing.assert_allclose(np.asarray(d_got), np.asarray(d_want), rtol=1e-6)
+
+def test_particle_block_rule():
+    assert particle_block(100_000) == 32
+    assert particle_block(8) == 16        # smallest tile
+    assert particle_block(100, block=64) == 64
+    assert particle_block(20, block=64) == 32
+
+
+def test_kernel_refuses_cpu_without_interpret():
+    cfg = FastSLAMConfig(num_particles=16, max_landmarks=8,
+                         max_measurements=4, parity_mode=False)
+    st = build_state(cfg)
+    ms = pad_measurements(cfg, [(2.0, 0.3)])
+    ps = to_planes(st, cfg)
+    zero = jnp.zeros((1, 16), jnp.float32)
+    with pytest.raises(RuntimeError, match="needs an NVIDIA GPU"):
+        filter_ticks(ps.poses, ps.log_weights,
+                     (ps.lm_mx, ps.lm_my, ps.lm_ca, ps.lm_cb, None, ps.lm_cd),
+                     ps.lm_count, ms.range_bearing[None], ms.valid[None],
+                     (zero, zero), None, cfg)
+    # a step on the planes engine refuses too, rather than running elsewhere
+    with pytest.raises(RuntimeError, match="needs an NVIDIA GPU"):
+        kernels.fastslam_step_planes(
+            ps, jnp.float32(0.0), jnp.float32(0.4), ms,
+            cfg.replace(use_pallas=True))
+
+
+@pytest.mark.parametrize("proposal,c", [("motion", 1), ("motion", 16),
+                                        ("fastslam2", 1), ("fastslam2", 16)])
+def test_kernel_lowers_through_triton(proposal, c):
+    """Each kernel variant the engines launch builds as Triton IR (the
+    lowering that precedes GPU code generation), so a primitive the Triton
+    route cannot lower fails here rather than on the card."""
+    from jax._src.pallas.triton import lowering
+
+    cfg = FastSLAMConfig(num_particles=100, max_landmarks=64,
+                         max_measurements=16, parity_mode=False,
+                         proposal_mode=proposal)
+    ps = to_planes(build_state(cfg), cfg)
+    rows = tuple(jnp.zeros((c, 100), jnp.float32)
+                 for _ in range(3 if proposal == "fastslam2" else 2))
+    scalars = (jnp.ones((c, 6), jnp.float32) if proposal == "fastslam2"
+               else None)
+    z = jnp.ones((c, 16, 2), jnp.float32)
+    zv = jnp.ones((c, 16), bool)
+    jaxpr = jax.make_jaxpr(
+        lambda *a: filter_ticks(*a, config=cfg, interpret=True))(
+        ps.poses, ps.log_weights,
+        (ps.lm_mx, ps.lm_my, ps.lm_ca, ps.lm_cb, None, ps.lm_cd),
+        ps.lm_count, z, zv, rows, scalars)
+    [eqn] = [e for e in jaxpr.eqns if e.primitive.name == "pallas_call"]
+    assert eqn.params["backend"] == "triton"
+    result = lowering.lower_jaxpr_to_triton_module(
+        eqn.params["jaxpr"], eqn.params["grid_mapping"], platform="cuda")
+    assert result.module.operation.verify()
 
 
 # ---------------------------------------------------------------------------
 # multi-tick (chunked) kernel
 # ---------------------------------------------------------------------------
 
-def _planes_from_state(st):
-    from fastslam_tpu.core.state import to_planes
-
-    return to_planes(st)
-
-
-def _sequential_reference(ps, noisy_rot, noisy_trans, z, z_valid, cfg):
-    """Per-tick composition the chunked kernel must match: explicit
+def _sequential_reference(st, noisy_rot, noisy_trans, z, z_valid, cfg):
+    """Per-tick XLA composition the chunked kernel must match: explicit
     propagation (reference rotation-XOR-translation order) followed by the
-    single-tick fused planes update, landmark planes streamed every tick."""
-    from fastslam_tpu.core.pallas_kernels import fused_update_planes
-
-    poses, logw = ps.poses, ps.log_weights
-    mx, my, ca, cb, cc, cd, cnt = (ps.lm_mx, ps.lm_my, ps.lm_ca, ps.lm_cb,
-                                   ps.lm_cc, ps.lm_cd, ps.lm_count)
+    scan measurement update, tick after tick."""
     est = []
     for k in range(z.shape[0]):
-        yaw = kernels.wrap_angle(poses[:, 2] + noisy_rot[k])
-        x = poses[:, 0] + noisy_trans[k] * jnp.cos(yaw)
-        y = poses[:, 1] + noisy_trans[k] * jnp.sin(yaw)
-        poses = jnp.stack([x, y, yaw], axis=-1)
-        logw, mx, my, ca, cb, cc, cd, cnt = fused_update_planes(
-            poses, logw, mx, my, ca, cb, cc, cd, cnt,
-            z[k], z_valid[k], cfg, interpret=True,
-        )
-        est.append((x, y, yaw, logw))
-    return est, (mx, my, ca, cb, cc, cd, cnt)
+        yaw = kernels.wrap_angle(st.poses[:, 2] + noisy_rot[k])
+        x = st.poses[:, 0] + noisy_trans[k] * jnp.cos(yaw)
+        y = st.poses[:, 1] + noisy_trans[k] * jnp.sin(yaw)
+        st = st._replace(poses=jnp.stack([x, y, yaw], axis=-1))
+        st = kernels.update_particles(st, Measurements(z[k], z_valid[k]), cfg)
+        est.append((x, y, yaw, st.log_weights))
+    return est, st
 
 
 @pytest.mark.parametrize("c", [1, 4])
 def test_chunked_kernel_matches_sequential(c):
-    """C ticks inside one kernel == C single-tick kernel invocations with the
-    same noise draws (production mode; appends, EKF updates, and invalid
-    measurements all crossing tick boundaries)."""
-    from fastslam_tpu.core.pallas_kernels import fused_update_planes_multi
-
+    """C ticks inside one kernel == C XLA ticks with the same noise draws
+    (production mode; appends, EKF updates, and invalid measurements all
+    crossing tick boundaries)."""
     cfg = FastSLAMConfig(
         num_particles=128, max_landmarks=8, max_measurements=4,
         parity_mode=False, use_pallas=True, pallas_interpret=True,
     )
     st = build_state(cfg, seed=11, fill=2)
-    ps = _planes_from_state(st)
+    ps = to_planes(st, cfg)
     rng = np.random.default_rng(12)
 
     # per-tick measurements: mix of updates, appends, and padded slots
@@ -207,46 +257,40 @@ def test_chunked_kernel_matches_sequential(c):
     # rotation-XOR-translation ticks
     rotating = rng.random(c) < 0.5
     noisy_rot = np.where(
-        rotating[:, None], rng.normal(0.3, 0.01, (c, ps.num_particles)), 0.0
+        rotating[:, None], rng.normal(0.3, 0.01, (c, 128)), 0.0
     ).astype(np.float32)
     noisy_trans = np.where(
-        rotating[:, None], 0.0, rng.normal(0.4, 0.01, (c, ps.num_particles))
+        rotating[:, None], 0.0, rng.normal(0.4, 0.01, (c, 128))
     ).astype(np.float32)
 
-    tx, ty, tyaw, tlogw, mx, my, ca, cb, cc, cd, cnt = fused_update_planes_multi(
+    (tx, ty, tyaw, tlogw), planes, cnt = filter_ticks(
         ps.poses, ps.log_weights,
-        ps.lm_mx, ps.lm_my, ps.lm_ca, ps.lm_cb, ps.lm_cc, ps.lm_cd,
-        ps.lm_count,
-        jnp.asarray(z), jnp.asarray(z_valid),
-        jnp.asarray(noisy_rot), jnp.asarray(noisy_trans), cfg,
+        (ps.lm_mx, ps.lm_my, ps.lm_ca, ps.lm_cb, ps.lm_cc, ps.lm_cd),
+        ps.lm_count, jnp.asarray(z), jnp.asarray(z_valid),
+        (jnp.asarray(noisy_rot), jnp.asarray(noisy_trans)), None, cfg,
         interpret=True,
     )
-
     est, final = _sequential_reference(
-        ps, jnp.asarray(noisy_rot), jnp.asarray(noisy_trans),
+        st, jnp.asarray(noisy_rot), jnp.asarray(noisy_trans),
         jnp.asarray(z), jnp.asarray(z_valid), cfg,
     )
-
     for k, (x, y, yaw, logw) in enumerate(est):
-        np.testing.assert_allclose(np.asarray(tx[k]), np.asarray(x),
-                                   rtol=1e-5, atol=1e-5)
-        np.testing.assert_allclose(np.asarray(ty[k]), np.asarray(y),
-                                   rtol=1e-5, atol=1e-5)
-        np.testing.assert_allclose(np.asarray(tyaw[k]), np.asarray(yaw),
-                                   rtol=1e-5, atol=1e-5)
+        for got, want in ((tx, x), (ty, y), (tyaw, yaw)):
+            np.testing.assert_allclose(np.asarray(got[k]), np.asarray(want),
+                                       rtol=1e-5, atol=1e-5)
         np.testing.assert_allclose(np.asarray(tlogw[k]), np.asarray(logw),
                                    rtol=1e-4, atol=1e-4)
-    w_mx, w_my, w_ca, w_cb, w_cc, w_cd, w_cnt = final
-    np.testing.assert_array_equal(np.asarray(cnt), np.asarray(w_cnt))
-    np.testing.assert_allclose(np.asarray(mx), np.asarray(w_mx),
-                               rtol=1e-4, atol=1e-4)
-    np.testing.assert_allclose(np.asarray(my), np.asarray(w_my),
-                               rtol=1e-4, atol=1e-4)
     # production streams no cc plane (cc == cb invariant)
-    assert cc is None and w_cc is None
-    for got, want in ((ca, w_ca), (cb, w_cb), (cd, w_cd)):
-        np.testing.assert_allclose(np.asarray(got), np.asarray(want),
-                                   rtol=1e-4, atol=1e-4)
+    assert planes[4] is None
+    mx, my, ca, cb, _, cd = planes
+    got = from_planes(ps._replace(lm_mx=mx, lm_my=my, lm_ca=ca, lm_cb=cb,
+                                  lm_cd=cd, lm_count=cnt))
+    np.testing.assert_array_equal(np.asarray(got.lm_count),
+                                  np.asarray(final.lm_count))
+    np.testing.assert_allclose(np.asarray(got.lm_mean),
+                               np.asarray(final.lm_mean), rtol=1e-4, atol=1e-4)
+    np.testing.assert_allclose(np.asarray(got.lm_cov),
+                               np.asarray(final.lm_cov), rtol=1e-4, atol=1e-4)
 
 
 def test_chunked_step_runs_and_estimates():
@@ -273,7 +317,6 @@ def test_chunked_step_runs_and_estimates():
         rb[k, :2, 1] = np.arctan2(d[:, 1], d[:, 0])
     rb = jnp.asarray(rb)
     valid = jnp.tile(jnp.asarray([True, True, False, False]), (c, 1))
-    from fastslam_tpu.core.state import Measurements
 
     state2, est = kernels.fastslam_steps_planes_chunked(
         state, rots, trans, Measurements(rb, valid), cfg
@@ -294,146 +337,3 @@ def test_chunked_step_runs_and_estimates():
             state, rots, trans, Measurements(rb, valid),
             cfg.replace(parity_mode=True),
         )
-
-
-@pytest.mark.slow
-def test_unroll_is_bit_exact_and_shadow_tracks_f32():
-    """The manual measurement-loop unroll must be a pure scheduling change
-    (bit-exact), and bf16 shadow association must track the f32 path (same
-    decisions away from gate boundaries => same EKF arithmetic)."""
-    from fastslam_tpu.core.state import init_planes_state
-
-    cfg = FastSLAMConfig(
-        num_particles=256, max_landmarks=16, max_measurements=8,
-        parity_mode=False, use_pallas=True, pallas_interpret=True,
-    )
-    ms = pad_measurements(
-        cfg, [(2.0 + 0.3 * i, -2.0 + 0.4 * i) for i in range(5)]
-    )
-
-    def run(**kw):
-        st = init_planes_state(cfg, rng=0)
-        for _ in range(4):
-            st, est = kernels.fastslam_step_planes(
-                st, jnp.float32(0.0), jnp.float32(0.4), ms, cfg, **kw
-            )
-        return st, est
-
-    # explicit unroll=1 baseline: the kernels default to unroll=2, so a
-    # bare run() would compare unrolled against unrolled (vacuous)
-    base_st, base_est = run(unroll=1)
-    for unroll in (2, 4):
-        u_st, u_est = run(unroll=unroll)
-        np.testing.assert_array_equal(np.asarray(u_st.lm_mx),
-                                      np.asarray(base_st.lm_mx))
-        np.testing.assert_array_equal(np.asarray(u_st.log_weights),
-                                      np.asarray(base_st.log_weights))
-        np.testing.assert_array_equal(np.asarray(u_est),
-                                      np.asarray(base_est))
-
-    s_st, s_est = run(assoc_shadow=True)
-    # this synthetic case sits far from every gate boundary, so the bf16
-    # association makes identical decisions and the (f32) EKF matches
-    np.testing.assert_allclose(np.asarray(s_st.lm_mx),
-                               np.asarray(base_st.lm_mx), atol=1e-6)
-    np.testing.assert_allclose(np.asarray(s_est), np.asarray(base_est),
-                               atol=1e-6)
-
-
-def test_chunked_unroll_and_shadow_flags():
-    from fastslam_tpu.core.state import Measurements, init_planes_state
-
-    cfg = FastSLAMConfig(
-        num_particles=256, max_landmarks=16, max_measurements=8,
-        parity_mode=False, use_pallas=True, pallas_interpret=True,
-    )
-    ms = pad_measurements(
-        cfg, [(2.0 + 0.3 * i, -2.0 + 0.4 * i) for i in range(5)]
-    )
-    c = 4
-    msc = Measurements(jnp.tile(ms.range_bearing[None], (c, 1, 1)),
-                       jnp.tile(ms.valid[None], (c, 1)))
-
-    def run(**kw):
-        st = init_planes_state(cfg, rng=0)
-        return kernels.fastslam_steps_planes_chunked(
-            st, jnp.zeros(c), jnp.full(c, 0.4), msc, cfg, **kw
-        )
-
-    # explicit unroll=1 baseline (default is unroll=2 — see above)
-    base_st, base_est = run(unroll=1)
-    for unroll in (2, 4):
-        u_st, u_est = run(unroll=unroll)
-        np.testing.assert_array_equal(np.asarray(u_est),
-                                      np.asarray(base_est))
-        np.testing.assert_array_equal(np.asarray(u_st.lm_mx),
-                                      np.asarray(base_st.lm_mx))
-    s_st, s_est = run(assoc_shadow=True)
-    np.testing.assert_allclose(np.asarray(s_est), np.asarray(base_est),
-                               atol=1e-6)
-
-@pytest.mark.slow
-def test_fs2_reuse_association_matches_full_path():
-    """config.fs2_reuse_association (RETIRED lever — see the config
-    rationale) stores the proposal pass's packed argmin keys, rebuilds
-    the EKF pass's one-hot from them, and guards appends against
-    same-tick duplicates.  This pins that the flag still executes on
-    both fused fs2 kernels and that its acquisition-phase divergence
-    from the full path stays bounded."""
-    from fastslam_tpu.core.state import Measurements, init_planes_state
-
-    base_kw = dict(
-        num_particles=256, max_landmarks=16, max_measurements=8,
-        parity_mode=False, use_pallas=True, pallas_interpret=True,
-        proposal_mode="fastslam2",
-    )
-    ms = pad_measurements(
-        FastSLAMConfig(**base_kw),
-        [(2.0 + 0.3 * i, -2.0 + 0.4 * i) for i in range(5)],
-    )
-
-    def run_per_tick(reuse, ticks=4):
-        cfg = FastSLAMConfig(**base_kw, fs2_reuse_association=reuse)
-        st = init_planes_state(cfg, rng=0)
-        ests = []
-        for _ in range(ticks):
-            st, est = kernels.fastslam_step_planes(
-                st, jnp.float32(0.0), jnp.float32(0.4), ms, cfg
-            )
-            ests.append(np.asarray(est))
-        return st, ests
-
-    b_st, b_ests = run_per_tick(False)
-    r_st, r_ests = run_per_tick(True)
-    # the duplicate guard must bound acquisition-phase divergence: the
-    # full path merges same-tick measurements into each other's fresh
-    # (default-cov, ~2.5 m gate) appends immediately, the reuse path
-    # defers/re-times those merges — counts stay within the per-tick
-    # measurement budget and nothing double-appends (the naive reuse
-    # without the guard appended duplicates for every same-tick
-    # neighbor).  The lever is RETIRED for accuracy (config rationale);
-    # this test pins that the flag still runs and stays bounded.
-    cnt_diff = np.abs(np.asarray(r_st.lm_count, np.int64)
-                      - np.asarray(b_st.lm_count, np.int64))
-    assert cnt_diff.max() <= 5, cnt_diff.max()
-    est_diff = np.abs(np.asarray(r_ests[-1]) - np.asarray(b_ests[-1]))
-    assert est_diff.max() < 0.2, est_diff.max()
-
-    c = 4
-    msc = Measurements(jnp.tile(ms.range_bearing[None], (c, 1, 1)),
-                       jnp.tile(ms.valid[None], (c, 1)))
-
-    def run_chunked(reuse):
-        cfg = FastSLAMConfig(**base_kw, fs2_reuse_association=reuse)
-        st = init_planes_state(cfg, rng=0)
-        return kernels.fastslam_steps_planes_chunked(
-            st, jnp.zeros(c), jnp.full(c, 0.4), msc, cfg
-        )
-
-    b_st, b_est = run_chunked(False)
-    r_st, r_est = run_chunked(True)
-    cnt_diff = np.abs(np.asarray(r_st.lm_count, np.int64)
-                      - np.asarray(b_st.lm_count, np.int64))
-    assert cnt_diff.max() <= 5, cnt_diff.max()
-    est_diff = np.abs(np.asarray(r_est) - np.asarray(b_est))
-    assert est_diff.max() < 0.2, est_diff.max()

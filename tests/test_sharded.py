@@ -130,32 +130,40 @@ def test_multihost_utils_single_process():
 
 
 def test_sharded_pallas_step_matches_scan(mesh):
-    """use_pallas under sharding: shard_map around the fused kernel
-    (interpret mode on CPU) must match the GSPMD scan path."""
+    """The kernel under sharding (shard_map around the fused kernel,
+    interpret mode on CPU) must match the GSPMD scan path from the same
+    seed: same RNG stream, same arithmetic, another layout."""
+    from fastslam_tpu.core.state import from_planes, to_planes
+    from fastslam_tpu.parallel.mesh import shard_planes_state
+    from fastslam_tpu.parallel.sharded import make_sharded_planes_step
+
     cfg_scan = FastSLAMConfig(num_particles=64, max_landmarks=16, max_measurements=4)
     cfg_pl = cfg_scan.replace(use_pallas=True, pallas_interpret=True)
     ms = pad_measurements(cfg_scan, [(2.0, 0.3), (3.5, -0.7)])
 
     st_a = shard_state(init_state(cfg_scan, rng=5), mesh, cfg_scan)
-    st_b = shard_state(init_state(cfg_pl, rng=5), mesh, cfg_pl)
+    st_b = shard_planes_state(to_planes(init_state(cfg_pl, rng=5), cfg_pl),
+                              mesh, cfg_pl)
     step_a = make_sharded_step(cfg_scan, mesh)
-    step_b = make_sharded_step(cfg_pl, mesh)
+    step_b = make_sharded_planes_step(cfg_pl, mesh)
 
     for _ in range(2):
         st_a, pose_a = step_a(st_a, jnp.float32(0.0), jnp.float32(0.4), ms)
         st_b, pose_b = step_b(st_b, jnp.float32(0.0), jnp.float32(0.4), ms)
 
+    blocks_b = from_planes(jax.device_get(st_b))
     np.testing.assert_allclose(np.asarray(pose_a), np.asarray(pose_b), atol=1e-5)
-    np.testing.assert_allclose(np.asarray(st_a.lm_mean), np.asarray(st_b.lm_mean),
-                               atol=1e-5)
-    np.testing.assert_array_equal(np.asarray(st_a.lm_count), np.asarray(st_b.lm_count))
-    assert len(st_b.lm_mean.addressable_shards) == 8
+    np.testing.assert_allclose(np.asarray(st_a.lm_mean),
+                               np.asarray(blocks_b.lm_mean), atol=1e-5)
+    np.testing.assert_array_equal(np.asarray(st_a.lm_count),
+                                  np.asarray(blocks_b.lm_count))
+    assert len(st_b.lm_mx.addressable_shards) == 8
 
 
 def test_sharded_planes_step_matches_unsharded_planes(mesh):
-    """The planes-native sharded step (shard_map around fused_update_planes,
+    """The planes-native sharded step (shard_map around the fused kernel,
     zero layout conversions) must agree with the single-device planes step
-    and stay sharded on the lane (particle) axis."""
+    and stay sharded on the particle (minor) axis."""
     from fastslam_tpu.core.state import from_planes, to_planes
     from fastslam_tpu.parallel.mesh import shard_planes_state
     from fastslam_tpu.parallel.sharded import make_sharded_planes_step
@@ -183,7 +191,7 @@ def test_sharded_planes_step_matches_unsharded_planes(mesh):
     np.testing.assert_allclose(np.asarray(a.lm_mean), np.asarray(b.lm_mean),
                                atol=1e-5)
     np.testing.assert_array_equal(np.asarray(a.lm_count), np.asarray(b.lm_count))
-    # planes sharded along the lane axis across all 8 devices
+    # planes sharded along the particle axis across all 8 devices
     assert len(ps_sh.lm_mx.addressable_shards) == 8
     assert ps_sh.lm_mx.addressable_shards[0].data.shape == (16, 16)
 

@@ -126,3 +126,18 @@ def test_icp_proposal_corrects_biased_odometry():
     ate_cmd = run()
     ate_icp = run(use_icp_proposal=True, icp_blend=1.0)
     assert ate_icp < ate_cmd * 0.6, f"cmd {ate_cmd:.3f} vs icp {ate_icp:.3f}"
+
+
+def test_compile_cache_dir_rule(monkeypatch):
+    """JAX_COMPILATION_CACHE_DIR when set, else a fixed .jax_cache/ at the
+    checkout root — never a directory under the user's home."""
+    import os
+
+    from fastslam_tpu.utils.compile_cache import compile_cache_dir
+
+    monkeypatch.setenv("JAX_COMPILATION_CACHE_DIR", "/somewhere/cache")
+    assert compile_cache_dir() == "/somewhere/cache"
+    monkeypatch.delenv("JAX_COMPILATION_CACHE_DIR")
+    root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    assert compile_cache_dir() == os.path.join(root, ".jax_cache")
+    assert not compile_cache_dir().startswith(os.path.expanduser("~") + "/.")
